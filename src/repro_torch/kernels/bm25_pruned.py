@@ -1,0 +1,128 @@
+"""K1: fused block-max pruned BM25 scoring + top-k — wrapper of
+``csrc/bm25_pruned.cu`` and K2's kernel, the port of
+``repro/kernels/bm25_pruned.py``.
+
+A block (t, m) is skipped when its score ceiling
+
+    bound(t, m) = qtf_t·block_max(t, m) + Σ_{t'≠t} qtf_{t'}·block_max(t', 0)
+
+times ``PRUNE_SAFETY`` falls below θ, the k-th best per-doc total over
+every term's always-scored first block. Every top-k doc keeps all of its
+blocks, so the result equals the dense path bit for bit (the losslessness
+argument of the reference module docstring).
+
+On the card the fused pass is two kernels: ``csrc/bm25_pruned.cu``
+computes impacts, θ, the keep mask and the term-ordered accumulation into a
+zeroed (Q, n_docs + 1) scratch in device memory — 4 MB a query at 1M docs,
+far beyond one block's shared memory — and K2's chunked top-k and merge
+read it back. The helpers below are the twin's θ and bounds, in the same
+arithmetic order as the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import backend, ref
+from repro_torch.kernels.topk import topk
+
+# Relative widening of the keep test (bound * PRUNE_SAFETY >= θ): absorbs
+# float rounding between the builder's f64 block_max and the query-time f32
+# impact sums.
+PRUNE_SAFETY = 1.0 + 1e-4
+MAX_SMEM = 227 * 1024
+
+
+def theta_lower_bound(d: torch.Tensor, v: torch.Tensor, k: int,
+                      n_docs: int) -> torch.Tensor:
+    """(Q, L) postings (doc ids ``d``, impacts ``v``) → (Q,) k-th best per-doc
+    total, a lower bound on the k-th best final score; 0 (prune nothing)
+    when L < k. The reference's segment-sum: stable sort by doc, inclusive
+    cumsum c, p = c − v, start_p = cummax of p at group starts, totals =
+    c − start_p at group ends — with the cumsum in :func:`ref.cumsum_f32`'s
+    pinned order, whose rounding θ (and so ``touched``) depends on."""
+    Q, L = d.shape
+    if L < k:
+        return torch.zeros(Q, dtype=torch.float32, device=v.device)
+    order = torch.argsort(d, dim=-1, stable=True)
+    d = torch.gather(d, -1, order)
+    v = torch.gather(v, -1, order)
+    c = ref.cumsum_f32(v)
+    p = c - v
+    change = d[:, 1:] != d[:, :-1]
+    edge = torch.ones(Q, 1, dtype=torch.bool, device=d.device)
+    is_start = torch.cat([edge, change], dim=1)
+    is_end = torch.cat([change, edge], dim=1)
+    start_p = torch.cummax(torch.where(is_start, p, float("-inf")), dim=-1).values
+    totals = torch.where(is_end & (d < n_docs), c - start_p, 0.0)
+    return torch.sort(totals, dim=-1, descending=True).values[:, k - 1]
+
+
+def block_bounds(ub: torch.Tensor) -> torch.Tensor:
+    """(Q, T, M) per-block ceilings ``qtf·block_max`` (0 where invalid) →
+    (Q, T, M) whole-score bounds ``ub + (Σ_t ub[t, 0] − ub[t, 0])``, the sum
+    taken left to right."""
+    first = ub[..., 0]
+    total = first[..., 0]
+    for t in range(1, first.shape[-1]):
+        total = total + first[..., t]
+    return ub + (total[..., None] - first)[..., None]
+
+
+def keep_mask(docs: torch.Tensor, imp: torch.Tensor, ub: torch.Tensor,
+              valid: torch.Tensor, *, k: int, n_docs: int) -> torch.Tensor:
+    """(Q, T, M) keep mask: valid, and a first block or ``bound · SAFETY ≥ θ``.
+    ``imp`` are the (Q, T, M, B) impacts (only m = 0 is read)."""
+    Q, T, M, B = docs.shape
+    theta = theta_lower_bound(docs[:, :, 0].reshape(Q, T * B),
+                              imp[:, :, 0].reshape(Q, T * B), k, n_docs)
+    first = torch.arange(M, device=docs.device) == 0
+    return valid & (first | (block_bounds(ub) * PRUNE_SAFETY >= theta[:, None, None]))
+
+
+def bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
+                     k: int, n_docs: int):
+    """Fused pruned scoring + top-k for one query or a batch.
+
+    tf (…, T, M, B) uint8, pre-zeroed on invalid blocks; dl (…, T, M, B) f32;
+    docs (…, T, M, B) int32 (pad = n_docs); idf_q (…, T) f32 = idf·qtf;
+    ub (…, T, M) f32 = qtf·block_max, 0 where invalid; valid (…, T, M) bool;
+    the leading … is nothing or Q. Requires k ≤ n_docs (callers clamp).
+    Returns (vals (…, k) f32, ids (…, k) int32, touched (…,) int32 — the
+    blocks scored).
+    """
+    tensors = (tf, dl, docs, idf_q, ub, valid)
+    if not backend.use_kernel(*tensors):
+        return ref.bm25_pruned_topk_ref(*tensors, k1, b, avgdl, k=k, n_docs=n_docs)
+    single = tf.dim() == 3
+    if single:
+        tensors = tuple(x.unsqueeze(0) for x in tensors)
+    tf, dl, docs, idf_q, ub, valid = (x.contiguous() for x in tensors)
+    want = (torch.uint8, torch.float32, torch.int32, torch.float32, torch.float32, torch.bool)
+    got = tuple(x.dtype for x in (tf, dl, docs, idf_q, ub, valid))
+    if got != want:
+        raise ValueError(f"bm25_pruned_topk takes dtypes {want}, got {got}")
+    Q, T, M, B = tf.shape
+    if dl.shape != tf.shape or docs.shape != tf.shape or idf_q.shape != (Q, T) \
+            or ub.shape != (Q, T, M) or valid.shape != (Q, T, M):
+        raise ValueError("bm25_pruned_topk: inconsistent shapes")
+    lib = backend.library("bm25_pruned")
+    smem = lib.bm25_pruned_smem_bytes(T, M, B)
+    if smem > MAX_SMEM:
+        raise ValueError(f"T·B = {T * B} first-block postings need {smem} B of shared memory")
+    acc = torch.zeros(Q, n_docs + 1, dtype=torch.float32, device=tf.device)
+    touched = torch.empty(Q, dtype=torch.int32, device=tf.device)
+    with torch.cuda.device(tf.device):
+        err = lib.bm25_pruned_accumulate_launch(
+            *(x.data_ptr() for x in (tf, dl, docs, idf_q, ub, valid, acc, touched)),
+            Q, T, M, B, k, n_docs, backend.f32(k1), backend.f32(b), backend.f32(avgdl),
+            backend.f32(PRUNE_SAFETY), backend.stream(tf))
+    backend.check(lib, err, "bm25_pruned_accumulate_launch")
+    bm25_pruned_topk.launches += 1
+    vals, ids = topk(acc[:, :n_docs], k)
+    if single:
+        return vals[0], ids[0], touched[0]
+    return vals, ids, touched
+
+
+bm25_pruned_topk.launches = 0
