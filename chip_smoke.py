@@ -23,7 +23,26 @@ Phases (each raises on failure; the script then exits non-zero):
      + kernels route (K3, K2) and the dense plain route (no kernel), every
      answer equal (ids, score bits) to the dense plain route's. The launch
      counters are set to 0 before each route and read after it: each route
-     must launch its kernels and no other.
+     must launch its kernels and no other;
+  6. the partitioned fleet on the card: the same corpus split over
+     ``FleetSpec(n_parts=4)`` with a dense tier of dim 768 (the width of the
+     BERT-base dense retrievers indexed for MS MARCO passage), lazy
+     hydration, pruned + kernels. K4 against its twin, bitwise, on a real
+     partition's rows at Q=1 and Q=64, timed beside the twin, a library
+     matmul + ``torch.topk`` and the bound. Then per mode (sparse, dense,
+     hybrid), after every instance is killed so the first query is cold:
+     one cold query, 20 warm queries and a 64-query micro-batch through
+     ``submit``/``flush``, the launch counters set to 0 before the mode and
+     checked after it (sparse K1+K2, dense K4+K2, hybrid K1+K2+K4), on the
+     queries of phases 4-5. Dense answers equal the full-corpus
+     ``DenseOracleSearcher`` (twin on the card) in ids and score bits;
+     windowed answers equal serial ones bitwise; hybrid equals ``rrf_fuse``
+     of the fleet's own sparse and dense rankings. Last, sparse answers
+     equal the single-node pruned route of phase 5 to the partition-count
+     standard of the reference's parity tests (ext ids, and scores to 6
+     decimals), on 64 queries whose terms have at most ``max_blocks``·128
+     postings — the standard's own precondition: no impact-ordered
+     truncation in any partition or in the single node.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -33,6 +52,7 @@ and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,6 +67,9 @@ MAX_BLOCKS = 64
 MAX_TERMS = 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
+FLEET_PARTS = 4
+VEC_DIM = 768                  # BERT-base dense retrievers (e.g. TCT-ColBERTv2)
+FLEET_MODES = {"sparse": ("K1", "K2"), "dense": ("K4", "K2"), "hybrid": ("K1", "K2", "K4")}
 
 
 def nvidia_smi() -> str:
@@ -169,7 +192,7 @@ def kernel_phase(searcher, queries, torch, bm25, ref, kern):
     return rows
 
 
-def latency_phase(searcher, queries, torch, configs, reps: int = 5):
+def latency_phase(searcher, queries, torch, configs, kern, reps: int = 5):
     """Measured time of the searcher's device call (encode → scores on the
     host, ``.cpu()`` included) per config, paired: each query runs on every
     config in turn, the order rotated from call to call, ``reps`` passes over
@@ -214,21 +237,9 @@ def latency_phase(searcher, queries, torch, configs, reps: int = 5):
               f"{np.percentile(ratio, 50):.3f} (p10 {np.percentile(ratio, 10):.3f}, p90 "
               f"{np.percentile(ratio, 90):.3f}); batch ratio p50 "
               f"{np.percentile(bratio, 50):.3f}", flush=True)
-    from torch.profiler import ProfilerActivity, profile
     for name in names:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for q in queries[1:6]:
-                searchers[name].search_batch([q])
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in events)
-        print(f"[4] profile {name}, 5 warm queries: wall {wall * 1e3:.3f} ms, device busy "
-              f"{dev_us / 1e3:.3f} ms ({dev_us / 1e4 / wall:.1f}% busy)", flush=True)
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-            if e.self_device_time_total > 0:
-                print(f"[4]   {e.key[:60]:60s} {e.self_device_time_total:10.1f} us "
-                      f"x{e.count}", flush=True)
+        profile_window("4", name, lambda q: searchers[name].search_batch([q]),
+                       queries[:6], kern)
     return out
 
 
@@ -291,6 +302,262 @@ def gateway_phase(app, queries, torch, kern):
     return launches
 
 
+def fleet_queries(docs, df: dict, max_postings: int, n: int) -> list[str]:
+    """``n`` queries of ``synth_queries`` (seed 6) whose every term has at
+    most ``max_postings`` postings in the whole corpus: no partition and no
+    single node truncates them, the precondition of the partition-count
+    invariance the sparse check holds the fleet to."""
+    from repro_torch.data.corpus import synth_queries
+    from repro_torch.index.tokenizer import tokenize
+    out = []
+    for q in synth_queries(docs, 2000 * n, seed=6):
+        terms = tokenize(q)
+        if terms and all(df.get(t, 0) <= max_postings for t in terms):
+            out.append(q)
+            if len(out) == n:
+                return out
+    raise AssertionError(f"only {len(out)} of {n} untruncated queries in the corpus")
+
+
+def k4_phase(app, cfg, queries, torch, ref, k4, device):
+    """Phase 6a: K4 (+ K2's merge) against its twin on one real partition's
+    dense rows, at Q=1 and Q=64, bitwise; times beside the twin, a library
+    matmul + ``torch.topk`` and the bound."""
+    from repro_torch.core.refresh import generation_version
+    from repro_torch.search.searcher import lazy_hydrate_dense_searcher
+    entry, _ = lazy_hydrate_dense_searcher(app.catalog, app.assets[0], cfg,
+                                           generation_version(app.indexer.gen), device)
+    entry.ensure_live()
+    rows = entry.searcher.rows
+    N, D = rows.shape
+    qv = torch.as_tensor(np.stack([app.embedder(q) for q in queries])).to(rows.device)
+    out = {}
+    for Q in (1, len(queries)):
+        q = qv[:Q].contiguous()
+        (gv, gi), (wv, wi) = k4(q, rows, K), ref.dot_topk_batch_ref(q, rows, K)
+        torch.cuda.synchronize()
+        require(bits_equal(gv, wv) and bits_equal(gi, wi), f"K4 != twin at Q={Q}")
+        n_chunks = -(-N // 1024)
+        out[Q] = dict(
+            err=max_abs_err(gv, wv), ms=cuda_ms(lambda: k4(q, rows, K)),
+            plain_ms=cuda_ms(lambda: ref.dot_topk_batch_ref(q, rows, K), reps=5),
+            library_ms=cuda_ms(lambda: torch.topk(torch.matmul(q, rows.T), K, dim=-1)),
+            bound=bound_ms(N * D * 4 + Q * D * 4 + Q * K * 8, 2 * Q * N * D),
+            survivors=Q * n_chunks * K)
+        r = out[Q]
+        print(f"[6] K4 Q={Q}, N={N}, D={D}: bitwise == twin; kernel + K2 merge {r['ms']:.4f} ms, "
+              f"twin {r['plain_ms']:.3f} ms, matmul + torch.topk {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+    del entry, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+# Each hand-written kernel's name in a device trace. Its wrapper adds one to
+# its counter for each launch of it.
+TRACE_NAMES = {"K1": "pruned_accumulate_kernel", "K2": "topk_rounds_kernel",
+               "K3": "bm25_block_kernel", "K4": "dot_topk_chunks_kernel"}
+PROFILE_ATTEMPTS = 3
+# Host-only time on either side of the recorded queries: the trace keeps a
+# device event only if its timestamp, moved to the host's clock, falls
+# inside the recorded step, so a kernel that ends just before the step does
+# would be lost.
+PROFILE_MARGIN_S = 0.05
+
+
+def profile_window(tag, name, run, queries, kern) -> None:
+    """Device busy share over ``run(q)`` for each of ``queries[1:]``, from a
+    ``torch.profiler`` trace whose first step, ``run(queries[0])``, only
+    warms the profiler up and is not recorded. The launch counters are set
+    to 0 before the recorded step, and the trace must hold exactly as many
+    launches of each hand-written kernel as the counters say: a trace that
+    lost events is taken again, and after ``PROFILE_ATTEMPTS`` incomplete
+    traces no busy share is reported. Busy time sums the device's own events
+    (kernels, copies), not the host ops that launched them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            run(queries[0])
+            torch.cuda.synchronize()
+            prof.step()
+            for fn in kern.values():
+                fn.launches = 0
+            time.sleep(PROFILE_MARGIN_S)
+            t0 = time.perf_counter()
+            for q in queries[1:]:
+                run(q)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_MARGIN_S)
+            prof.step()
+        counted = {n: fn.launches for n, fn in kern.items()}
+        # the device's own events; a step's span on the device timeline
+        # (``ProfilerStep*``, a user annotation) would count the step twice
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("ProfilerStep")]
+        traced = {n: sum(e.count for e in events if TRACE_NAMES[n] in e.key) for n in kern}
+        if traced == counted:
+            break
+        print(f"[{tag}] profile {name}, attempt {attempt}: the trace holds {traced} launches, "
+              f"the counters {counted}; taken again", flush=True)
+    else:
+        print(f"[{tag}] profile {name}: no complete trace in {PROFILE_ATTEMPTS} attempts, "
+              f"busy share not reported", flush=True)
+        return
+    dev_us = sum(e.self_device_time_total for e in events)
+    print(f"[{tag}] profile {name}, {len(queries) - 1} warm queries (trace complete: "
+          f"{traced} launches == counters, attempt {attempt}): wall {wall * 1e3:.3f} ms, "
+          f"device busy {dev_us / 1e3:.3f} ms ({dev_us / 1e4 / wall:.1f}% busy)", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:4]:
+        print(f"[{tag}]   {e.key[:60]:60s} {e.self_device_time_total:10.1f} us x{e.count}",
+              flush=True)
+
+
+def _bits(scores) -> list:
+    return np.float32(scores).view(np.uint32).tolist()
+
+
+def fleet_traffic(app, queries, oracle, kern):
+    """Phase 6b: per mode, kill every instance, then one cold query, 20 warm
+    queries and a 64-query micro-batch through ``submit``/``flush``, with
+    the launch counters set to 0 before the mode and read after it."""
+    from repro_torch.core.partition import rrf_fuse
+    fns = [fn for group in app.fn_groups for fn in group]
+    answers, launches = {}, {}
+    for mode, expected in FLEET_MODES.items():
+        for fn in fns:
+            while app.runtime.kill_instance(fn=fn):
+                pass
+        n0 = len(app.runtime.records)
+        for fn in kern.values():
+            fn.launches = 0
+        serial, walls = [], []
+        for q in queries[:21]:
+            t0 = time.perf_counter()
+            r = app.query(q, k=K, mode=mode, t_arrival=app.runtime.clock + 0.05)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            require(r.status == 200, f"{mode}: status {r.status} {r.body}")
+            serial.append(r.body)
+        recs = app.runtime.records[n0:]
+        batches0 = app.gateway.window_stats("GET", "/search")["batches"]
+        t_sub = app.runtime.clock + 1.0
+        t0 = time.perf_counter()
+        handles = [app.submit(q, k=K, mode=mode, t_arrival=t_sub + i * 1e-4)
+                   for i, q in enumerate(queries)]
+        app.flush()
+        batch_wall = (time.perf_counter() - t0) * 1e3
+        launches[mode] = {name: fn.launches for name, fn in kern.items()}
+        windowed = [h.response for h in handles]
+        require(all(w.status == 200 for w in windowed), f"{mode}: windowed status")
+        stats = app.gateway.window_stats("GET", "/search")
+        require(stats["batches"] == batches0 + 1, f"{mode}: the 64 queries did not share one window")
+        for name, n in launches[mode].items():
+            require((n > 0) == (name in expected),
+                    f"fleet {mode}: kernel {name} launched {n} times, expected "
+                    f"{'some' if name in expected else 'none'}")
+        cold, warm = recs[:FLEET_PARTS], recs[FLEET_PARTS:]
+        require(all(r.cold for r in cold) and not any(r.cold for r in warm),
+                f"{mode}: cold/warm pattern")
+        warm_exec = [max(r.exec_s for r in warm[i:i + FLEET_PARTS]) * 1e3
+                     for i in range(0, len(warm), FLEET_PARTS)]
+        # the second query is warm but pays the rebuild of each lazy sparse
+        # searcher after the cold query's backfill; queries 3-21 are steady
+        print(f"[6] {mode}: launches {launches[mode]}; cold hydrate_s (modeled, max of "
+              f"{FLEET_PARTS} legs) {max(r.hydrate_s for r in cold):.4f}, cold exec_s "
+              f"{max(r.exec_s for r in cold) * 1e3:.1f} ms, cold wall {walls[0]:.1f} ms; "
+              f"second query wall {walls[1]:.1f} ms, exec_s (slowest leg) "
+              f"{warm_exec[0]:.1f} ms; warm wall (queries 2-21) p50 "
+              f"{np.percentile(walls[1:], 50):.3f} ms p99 {np.percentile(walls[1:], 99):.3f} ms, "
+              f"steady (queries 3-21) p50 {np.percentile(walls[2:], 50):.3f} ms p99 "
+              f"{np.percentile(walls[2:], 99):.3f} ms; steady exec_s (slowest leg) p50 "
+              f"{np.percentile(warm_exec[1:], 50):.3f} ms p99 "
+              f"{np.percentile(warm_exec[1:], 99):.3f} ms; 64-query window wall "
+              f"{batch_wall:.1f} ms, exec_s (slowest leg) "
+              f"{max(r.exec_s for r in app.runtime.records[-FLEET_PARTS:]) * 1e3:.3f} ms",
+              flush=True)
+        for i, (a, w) in enumerate(zip(serial, windowed)):
+            require(a["ext_ids"] == w.body["ext_ids"] and _bits(a["scores"]) == _bits(w.body["scores"]),
+                    f"{mode} query {i}: windowed != serial")
+        answers[mode] = [w.body for w in windowed]
+        profile_window("6", f"fleet {mode}", lambda q: app.query(
+            q, k=K, mode=mode, t_arrival=app.runtime.clock + 0.05), queries[20:26], kern)
+    for qi, q in enumerate(queries):
+        d = answers["dense"][qi]
+        want = oracle.search(q, k=K)
+        require(d["ext_ids"] == [oracle.doc_ids[i] for i, _ in want]
+                and _bits(d["scores"]) == _bits([v for _, v in want]),
+                f"dense query {qi}: != full-corpus oracle")
+        fused = rrf_fuse([answers["sparse"][qi]["ids"], d["ids"]], K)
+        h = answers["hybrid"][qi]
+        require(h["ids"] == [i for i, _ in fused] and h["scores"] == [v for _, v in fused],
+                f"hybrid query {qi}: != rrf_fuse of the fleet's sparse and dense rankings")
+        s = answers["sparse"][qi]
+        require(all(np.isfinite(s["scores"])) and s["scores"] == sorted(s["scores"], reverse=True)
+                and len(d["ids"]) == K, f"query {qi}: scores not finite/descending or short")
+    print(f"[6] all {len(queries)} queries: dense == full-corpus oracle (ids, score bits); "
+          f"hybrid == rrf_fuse(sparse, dense); windowed == serial (bits) on the first 21",
+          flush=True)
+    return launches
+
+
+def sparse_vs_single(app, single, queries):
+    """Phase 6c: the fleet's sparse answers against the single-node pruned
+    route over the same corpus, to the reference's partition-count standard
+    (``tests/test_parity.py``): equal ext ids, scores equal to 6 decimals."""
+    for qi, q in enumerate(queries):
+        s = app.query(q, k=K, t_arrival=app.runtime.clock + 0.05, fetch_docs=False).body
+        one = single.query(q, k=K, fetch_docs=False).body
+        require(s["ext_ids"] == one["ext_ids"] and s["ext_ids"]
+                and [round(x, 6) for x in s["scores"]] == [round(x, 6) for x in one["scores"]],
+                f"sparse query {qi} {q!r}: fleet != single-node pruned route")
+    print(f"[6] {len(queries)} untruncated queries: fleet sparse == single-node pruned route "
+          f"(ext ids, scores to 6 decimals)", flush=True)
+
+
+def fleet_phase(docs, queries, single, torch, ref, kern, device="cuda"):
+    """Phase 6: the partitioned fleet with its dense tier on the card."""
+    from repro_torch.core.gateway import WindowPolicy
+    from repro_torch.core.partition import FleetSpec, GatewaySpec, IndexSpec, VectorSpec
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.search.oracle import DenseOracleSearcher
+    from repro_torch.search.searcher import SearchConfig
+    from repro_torch.search.service import build_partitioned_search_app
+    cfg = SearchConfig(accumulator="pruned", use_kernel=True, use_topk_kernel=True)
+    t0 = time.perf_counter()
+    # one window takes the whole 64-query micro-batch (max_batch flushes it)
+    app = build_partitioned_search_app(docs, FleetSpec(
+        n_parts=FLEET_PARTS, index=IndexSpec(vector=VectorSpec(dim=VEC_DIM)),
+        gateway=GatewaySpec(window=WindowPolicy(max_window_s=1.0, target_batch=N_QUERIES,
+                                                sparse_qps=0.0, p99_budget_s=None,
+                                                max_batch=N_QUERIES)),
+        search_config=cfg, runtime_config=RuntimeConfig(seed=0)), device=device)
+    t1 = time.perf_counter()
+    sizes = [len(st.seg_docs) for st in app.indexer.parts]
+    untruncated = fleet_queries(docs, app.indexer.stats["df"], cfg.max_blocks * 128, N_QUERIES)
+    print(f"[6] fleet of {FLEET_PARTS} partitions {sizes}, dense tier dim {VEC_DIM} "
+          f"({sizes[0] * VEC_DIM * 4} B of f32 rows in partition 0): built and published in "
+          f"{t1 - t0:.1f} s; {len(untruncated)} queries whose terms have <= "
+          f"{cfg.max_blocks * 128} postings picked in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    k4 = k4_phase(app, dataclasses.replace(cfg, lazy_hydration=True), queries, torch, ref,
+                  kern["K4"], device)
+    t0 = time.perf_counter()
+    oracle = DenseOracleSearcher(app.indexer.live_corpus(), app.embedder, device=device)
+    print(f"[6] full-corpus dense oracle ({oracle.vectors.shape[0]} rows, twin on the card) "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    launches = fleet_traffic(app, queries, oracle, kern)
+    print(f"[6] max_memory_allocated during the fleet traffic "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    sparse_vs_single(app, single, untruncated)
+    return k4, launches, sizes
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
@@ -307,6 +574,7 @@ def main() -> int:
         from repro_torch.kernels import backend, ref
         from repro_torch.kernels.bm25_block import bm25_block_scores
         from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
+        from repro_torch.kernels.dot_topk import dot_topk_batch
         from repro_torch.kernels.topk import topk
         from repro_torch.search import bm25
         from repro_torch.search.searcher import (SearchConfig, hydrate_searcher,
@@ -317,7 +585,8 @@ def main() -> int:
         return 2
     require(not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                     for m in sys.modules), "JAX or the JAX package was imported")
-    kern = {"K3": bm25_block_scores, "K2": topk, "K1": bm25_pruned_topk}
+    kern = {"K3": bm25_block_scores, "K2": topk, "K1": bm25_pruned_topk, "K4": dot_topk_batch}
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = nvidia_smi()
@@ -360,14 +629,20 @@ def main() -> int:
     latency_phase(searcher, queries, torch, {
         "pruned+kernels": pruned_cfg,
         "dense+kernels": SearchConfig(use_kernel=True, use_topk_kernel=True),
-        "dense plain": SearchConfig()})
+        "dense plain": SearchConfig()}, kern)
     del searcher
     torch.cuda.empty_cache()
 
     # 5. the main path through the gateway
     torch.cuda.reset_peak_memory_stats()
     launches = gateway_phase(app, queries, torch, kern)
-    print(f"[5] max_memory_allocated {torch.cuda.max_memory_allocated()} B", flush=True)
+    print(f"[5] max_memory_allocated {torch.cuda.max_memory_allocated()} B; phases 1-5 took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 6. the partitioned fleet with its dense tier, on the same corpus
+    k4, fleet_launches, sizes = fleet_phase(docs, queries, app, torch, ref, kern)
+    launches.update({f"fleet:{mode}": c for mode, c in fleet_launches.items()})
+    print(f"[6] phases 1-6 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     Q = len(queries)
     meta = {
@@ -386,6 +661,16 @@ def main() -> int:
          "bound_by": rows[n][Q]["bound"][1], "library_ms": rows[n][Q]["library_ms"],
          "shape": f"Q={Q}, T={MAX_TERMS}, M={MAX_BLOCKS}, B=128, n_docs={args.docs}"}
         for n in ("K3", "K2", "K1")]}
+    line["kernels"].append({
+        "name": "dot_topk_batch", "route": "cuda", "source": "src/repro_torch/kernels/csrc/dot_topk.cu",
+        "replaces": "src/repro/kernels/dot_topk.py:69", "launches": launches["fleet:dense"]["K4"],
+        "launches_on": "fleet:dense",
+        "launches_by_route": {route: c["K4"] for route, c in launches.items()},
+        "max_abs_err": k4[Q]["err"], "ms": k4[Q]["ms"], "plain_ms": k4[Q]["plain_ms"],
+        "bound_ms": k4[Q]["bound"][0], "bound_by": k4[Q]["bound"][1],
+        "library_ms": k4[Q]["library_ms"],
+        "shape": f"Q={Q}, N={sizes[0]}, D={VEC_DIM}, k={K}; ms includes K2's merge of "
+                 f"{k4[Q]['survivors']} survivors"})
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bm25_block", "topk", "bm25_pruned")
+SOURCES = ("bm25_block", "topk", "bm25_pruned", "dot_topk")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # IEEE division (nvcc's default -prec-div=true) and no FMA contraction: each
 # arithmetic step rounds once, as the eager twins' ops do.
@@ -48,6 +48,9 @@ SIGNATURES = {
     "bm25_pruned": {
         "bm25_pruned_smem_bytes": (_LL, [_I, _I, _I]),
         "bm25_pruned_accumulate_launch": (_I, [_P] * 8 + [_I] * 6 + [_F] * 4 + [_P]),
+    },
+    "dot_topk": {
+        "dot_topk_chunks_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P]),
     },
 }
 

@@ -20,6 +20,14 @@ Two orders are pinned explicitly because the library's own differ by device:
   the reference to the bit. ``torch.cumsum`` is a parallel scan on the card
   and accumulates in float64 on the CPU.
 
+A third is pinned because the library's depends on the shape:
+
+* a dense-tier score (:func:`dot_scores_f32`) sums ``c_d · q_d`` over d
+  from 0 to D − 1, one rounded product and one rounded add a step, from
+  +0.0 — the order K4 computes, and one that depends on D alone, so a
+  query's bits depend neither on its batch neighbours nor on the size of
+  the partition. ``torch.matmul`` blocks its sums by shape.
+
 Top-k ties go to the lowest index (a stable descending sort), never
 ``torch.topk``, whose tie order is unspecified.
 """
@@ -29,6 +37,7 @@ from __future__ import annotations
 import torch
 
 SCAN_ROW = 16
+DOT_CHUNK = 1024     # rows per K4 chunk, as the reference's DEFAULT_CHUNK
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
@@ -142,3 +151,47 @@ def bm25_pruned_topk_ref(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
     if single:
         return vals[0], ids[0], touched[0]
     return vals, ids, touched
+
+
+def dot_scores_f32(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """queries (Q, D), cands (N, D) f32 → (Q, N) f32 inner products in the
+    pinned order: ``acc = +0.0``, then ``acc = acc + c_d·q_d`` for d = 0 …
+    D − 1, each product and each sum rounded once."""
+    Q, D = queries.shape
+    cT = cands.t().contiguous()                       # (D, N): one row per step
+    acc = torch.zeros(Q, cands.shape[0], dtype=torch.float32, device=cands.device)
+    for d in range(D):
+        acc = acc + queries[:, d, None] * cT[d][None, :]
+    return acc
+
+
+def dot_topk_batch_ref(queries: torch.Tensor, cands: torch.Tensor, k: int, *,
+                       chunk: int = DOT_CHUNK):
+    """Twin of K4: queries (Q, D), cands (N, D) f32 → (vals, ids int32)
+    (Q, k). Scores as :func:`dot_scores_f32`; rows past N are -inf; each
+    ``chunk``-row chunk keeps its top k (ties to the lowest row), and the
+    survivors, in chunk order, merge with ties to the lowest id. Slots with
+    no live row come back as (-inf, N). ``chunk`` is never shrunk to N."""
+    Q = queries.shape[0]
+    N = cands.shape[0]
+    if Q == 0:
+        return (torch.zeros(0, k, dtype=torch.float32, device=cands.device),
+                torch.zeros(0, k, dtype=torch.int32, device=cands.device))
+    chunk = max(chunk, k)
+    n_chunks = max(1, -(-N // chunk))
+    scores = dot_scores_f32(queries, cands)
+    scores = torch.nn.functional.pad(scores, (0, n_chunks * chunk - N), value=float("-inf"))
+    vals, pos = topk_ref(scores.reshape(Q, n_chunks, chunk), k)
+    base = torch.arange(n_chunks, device=cands.device, dtype=torch.int64)[:, None] * chunk
+    ids = torch.where(vals == float("-inf"), N, pos.long() + base)
+    vals, ids = vals.reshape(Q, n_chunks * k), ids.reshape(Q, n_chunks * k)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices[:, :k]
+    return vals.gather(1, order), ids.gather(1, order).to(torch.int32)
+
+
+def dot_topk_ref(query: torch.Tensor, cands: torch.Tensor, k: int, *,
+                 chunk: int = DOT_CHUNK):
+    """query (D,), cands (N, D) → (vals (k,), ids (k,) int32): one row of
+    :func:`dot_topk_batch_ref`."""
+    vals, ids = dot_topk_batch_ref(query[None, :], cands, k, chunk=chunk)
+    return vals[0], ids[0]

@@ -58,10 +58,23 @@ def topk(scores: torch.Tensor, k: int, *, chunk: int = DEFAULT_CHUNK):
         raise ValueError(f"chunk {merge_chunk} exceeds shared memory ({MAX_CHUNK} f32)")
     with torch.cuda.device(s.device):
         vals, ids = _rounds(s, None, N, chunk, k, N)
-        while vals.shape[1] > k:   # merge survivors until one chunk is left
-            vals, ids = _rounds(vals, ids, vals.shape[1], merge_chunk, k, N)
+        vals, ids = merge(vals, ids, k, N, chunk=merge_chunk)
     if single:
         return vals[0], ids[0]
+    return vals, ids
+
+
+def merge(vals: torch.Tensor, ids: torch.Tensor, k: int, n_live: int, *,
+          chunk: int = DEFAULT_CHUNK):
+    """Survivors (Q, S) f32 values and int32 ids on the card, each chunk's
+    in descending order and chunks in id order → the (Q, k) top k, ties to
+    the lowest id, -inf slots as (-inf, ``n_live``). K2's kernel over the
+    survivors, again until one chunk is left; K4 merges through it too."""
+    chunk = max(chunk, 2 * k)
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} exceeds shared memory ({MAX_CHUNK} f32)")
+    while vals.shape[1] > k:
+        vals, ids = _rounds(vals, ids, vals.shape[1], chunk, k, n_live)
     return vals, ids
 
 

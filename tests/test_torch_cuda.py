@@ -11,6 +11,7 @@ from repro_torch.data.corpus import synth_pruned_blocks
 from repro_torch.kernels import ref
 from repro_torch.kernels.bm25_block import bm25_block_scores
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
+from repro_torch.kernels.dot_topk import dot_topk_batch
 from repro_torch.kernels.topk import topk
 
 _F32 = (np.float32(0.9), np.float32(0.4), np.float32(12.0))
@@ -69,6 +70,38 @@ def test_bm25_pruned_kernel_equals_twin(cuda, T, M, n_docs, k):
     got = bm25_pruned_topk(*args, *_F32, k=k, n_docs=n_docs)
     want = ref.bm25_pruned_topk_ref(*args, *_F32, k=k, n_docs=n_docs)
     assert all(_bits(g, w) for g, w in zip(got, want))
+
+
+# The dense tier's width (D=768, k=10) at every N and Q; then widths that
+# are no multiple of the kernel's 8-column tile (its partial last tile), and
+# k of 1, 100 and a whole chunk.
+K4_CASES = ([(N, Q, 768, 10) for N in (53, 1091, 250_000) for Q in (1, 7, 64)]
+            + [(1091, 7, 13, 10), (250_000, 64, 13, 1), (1091, 64, 100, 100),
+               (53, 7, 100, 100), (250_000, 1, 100, 100), (4096, 7, 768, 1),
+               (3000, 7, 13, 1024)])
+
+
+@pytest.mark.parametrize("N,Q,D,k", K4_CASES)
+def test_dot_topk_kernel_equals_twin(cuda, N, Q, D, k):
+    """K4 + K2's merge against the twin, bitwise. Rows 0 and 1 of the first
+    chunk repeat in the last one, so ties across chunks must resolve to the
+    lowest row; row 0 is scaled up so that it is query 0's best row."""
+    rng = np.random.default_rng(N + Q + D + k)
+    c = rng.standard_normal((N, D)).astype(np.float32)
+    c[0] *= 4
+    c[-2:] = c[:2]
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    q[0] = c[0]                                        # its best row is tied
+    c, q = _on(cuda, c, q)
+    before = dot_topk_batch.launches
+    gv, gi = dot_topk_batch(q, c, k)
+    assert dot_topk_batch.launches == before + 1
+    wv, wi = ref.dot_topk_batch_ref(q, c, k)
+    assert gv.shape == (Q, k) and _bits(gv, wv) and _bits(gi, wi)
+    assert int(gi[0, 0]) == 0
+    # a query's bits do not depend on its batch neighbours
+    v1, i1 = dot_topk_batch(q[-1:], c, k)
+    assert _bits(v1[0], gv[-1]) and _bits(i1[0], gi[-1])
 
 
 def test_kernels_refuse_wrong_dtypes(cuda):

@@ -8,6 +8,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25          # every module was walked
+    assert int(out.stdout.strip()) >= 30          # every module was walked
 
 
 def test_sources_name_neither_jax_nor_repro():
@@ -57,17 +58,23 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     from repro_torch.index.builder import IndexWriter
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.search.bm25 import SearchState
-    from repro_torch.search.searcher import Searcher, make_search_handler
-    from repro_torch.search.service import build_search_app
+    from repro_torch.data.corpus import hash_embedder
+    from repro_torch.search.oracle import DenseOracleSearcher
+    from repro_torch.search.searcher import DenseSearcher, Searcher, make_search_handler
+    from repro_torch.search.service import build_partitioned_search_app, build_search_app
     docs = synth_corpus(20, vocab=50, seed=1)
     w = IndexWriter()
     w.add_many(docs)
     packed = w.pack()
+    vecs = np.zeros((20, 4), np.float32)
     for call in (lambda: resolve_device(None),
                  lambda: SearchState.from_packed(packed),
                  lambda: Searcher(packed),
+                 lambda: DenseSearcher(vecs, [d for d, _ in docs], np.ones(20, bool)),
+                 lambda: DenseOracleSearcher(docs, hash_embedder(4)),
                  lambda: make_search_handler(None, None),
-                 lambda: build_search_app(docs)):
+                 lambda: build_search_app(docs),
+                 lambda: build_partitioned_search_app(docs, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert Searcher(packed, device="cpu").search_one(docs[0][1].split()[0])

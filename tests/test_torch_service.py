@@ -94,36 +94,107 @@ def test_probes_match_reference(corpus):
 
 
 def test_unported_paths_raise_not_implemented(corpus):
-    t = t_build(corpus[:50], search_config=TSearchConfig(sim_exec_s=0.01), device="cpu")
-    handler = t.runtime._handlers["search"]
+    """Structured payloads (``sq``, ``sqs``) wait for the structured tier
+    and are refused with ``NotImplementedError`` — never answered another
+    way."""
     from repro_torch.core.cache import HydrationCache
-    cache = HydrationCache(1 << 30)
-    for payload in ({"q": "bi", "mode": "dense", "qv": [0.0] * 16},
-                    {"q": "bi", "mode": "hybrid", "qv": [0.0] * 16},
-                    {"sq": {"op": "term", "term": "bi"}},
-                    {"prewarm_terms": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    t = t_build(corpus[:50], search_config=TSearchConfig(sim_exec_s=0.01), device="cpu")
+    handler, cache = t.runtime._handlers["search"], HydrationCache(1 << 30)
+    for payload in ({"sq": {"op": "term", "term": "bi"}},
+                    {"sqs": [{"op": "term", "term": "bi"}]}):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
             handler(cache, payload)
+
+
+def test_dense_payloads_on_single_app_match_reference(corpus):
+    """The single-function app has no dense tier: dense and hybrid payloads
+    raise ``DenseTierMissing`` in both packages, and the gateway answers
+    502 at the same modeled latency."""
+    from repro.core.cache import HydrationCache as JHydrationCache
+    from repro.search.searcher import DenseTierMissing as JDenseTierMissing
+    from repro_torch.core.cache import HydrationCache
+    from repro_torch.search.searcher import DenseTierMissing
+    j = j_build(corpus[:50], search_config=JSearchConfig(sim_exec_s=0.01))
+    t = t_build(corpus[:50], search_config=TSearchConfig(sim_exec_s=0.01), device="cpu")
+    handler, j_handler = t.runtime._handlers["search"], j.runtime._handlers["search"]
+    cache, j_cache = HydrationCache(1 << 30), JHydrationCache(1 << 30)
+    for payload in ({"q": "bi", "mode": "dense", "qv": [0.0] * 16},
+                    {"q": "bi", "mode": "hybrid", "qv": [0.0] * 16}):
+        with pytest.raises(DenseTierMissing):
+            handler(cache, payload)
+        with pytest.raises(JDenseTierMissing):
+            j_handler(j_cache, payload)
     resp = t.gateway.request("GET", "/search", {"q": "bi", "mode": "dense"})
-    assert resp.status == 502 and "not ported" in resp.body["error"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        t_build(corpus[:50], search_config=TSearchConfig(lazy_hydration=True), device="cpu")
+    want = j.gateway.request("GET", "/search", {"q": "bi", "mode": "dense"})
+    assert (resp.status, resp.latency_s) == (want.status, want.latency_s) == (502, want.latency_s)
+
+
+def test_prewarm_and_lazy_hydration_match_reference(corpus):
+    """A prewarm ping answers as the reference's, and a lazily hydrating
+    app serves the same responses and ledger."""
+    from repro.core.cache import HydrationCache as JHydrationCache
+    from repro_torch.core.cache import HydrationCache
+    j = j_build(corpus[:50], search_config=JSearchConfig(sim_exec_s=0.01))
+    t = t_build(corpus[:50], search_config=TSearchConfig(sim_exec_s=0.01), device="cpu")
+    handler, j_handler = t.runtime._handlers["search"], j.runtime._handlers["search"]
+    cache, j_cache = HydrationCache(1 << 30), JHydrationCache(1 << 30)
+    assert handler(cache, {"prewarm_terms": 8}) == j_handler(j_cache, {"prewarm_terms": 8})
+    j_lazy, t_lazy = _apps(corpus, lazy_hydration=True)
+    for q in ("bi", ["bi bo", "zzz"]):
+        _assert_same_response(t_lazy.query(q, k=10), j_lazy.query(q, k=10))
+    assert dataclasses.asdict(t_lazy.runtime.ledger) == dataclasses.asdict(j_lazy.runtime.ledger)
 
 
 def test_generation_manifest_raises_not_implemented(corpus):
-    """An NRT generation (base + deltas) is refused until the write path is
-    ported, not served from some other state."""
+    """Writing a new generation manifest is the write path, which waits: a
+    fleet's commit, its writer functions and ``POST /index`` refuse with
+    ``NotImplementedError``, and the published generation stays served."""
+    from repro_torch.core.partition import FleetSpec
+    from repro_torch.search.service import build_partitioned_search_app
+    t = build_partitioned_search_app(corpus[:60], FleetSpec(n_parts=2), device="cpu")
+    before = t.query("bi", k=3).body
+    for call in (lambda: t.commit(), lambda: t.indexer.commit(t.fn_groups),
+                 lambda: t.runtime._handlers["indexer-p0"](None, {"op": "delta", "gen": 2})):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+            call()
+    r = t.gateway.request("POST", "/index", {"op": "commit"})
+    assert r.status == 502 and "ROADMAP Queue 1 item 5" in r.body["error"]
+    after = t.query("bi", k=3).body
+    assert after["generation"] == before["generation"] == t.indexer.gen == 1
+    assert after["ext_ids"] == before["ext_ids"] and after["ext_ids"]
+
+
+def test_generation_manifest_matches_reference(corpus):
+    """An NRT generation (base + deltas) published behind the app is served
+    — fused under the manifest's stats — exactly as the reference serves
+    it."""
+    from repro.core.refresh import GenerationManifest as JGenerationManifest
+    from repro.index.builder import IndexWriter as JIndexWriter
+    from repro.index.builder import compute_global_stats as j_stats
+    from repro.index.builder import global_vocab as j_vocab
+    from repro.index.builder import write_segment as j_write
     from repro_torch.core.refresh import GenerationManifest
-    from repro_torch.index.builder import IndexWriter, compute_global_stats, write_segment
+    from repro_torch.index.builder import (IndexWriter, compute_global_stats, global_vocab,
+                                           write_segment)
     docs = corpus[:50]
+    j = j_build(docs, search_config=JSearchConfig(sim_exec_s=0.01))
     t = t_build(docs, search_config=TSearchConfig(sim_exec_s=0.01), device="cpu")
-    assert t.query("bi", k=3).status == 200
-    w = IndexWriter()
-    w.add_many(docs)
-    packed = w.pack()
-    t.catalog.publish_segment("index", "s0", write_segment(packed))
-    t.catalog.publish_generation("index", GenerationManifest(
-        gen=1, base="s0", deltas=[], tombstones=[],
-        stats=compute_global_stats(docs), vocab=packed.vocab))
-    resp = t.query("bi", k=3)
-    assert resp.status == 502 and "ROADMAP Queue 1 item 5" in resp.body["error"]
+    for app, writer, write, manifest, stats, vocab in (
+            (t, IndexWriter, write_segment, GenerationManifest, compute_global_stats,
+             global_vocab),
+            (j, JIndexWriter, j_write, JGenerationManifest, j_stats, j_vocab)):
+        assert app.query("bi", k=3).status == 200
+        w = writer(global_stats=stats(docs[:30]), vocab=vocab(stats(docs)))
+        w.add_many(docs[:30])
+        base = w.pack()
+        delta = writer.delta(docs[30:], stats(docs[:30]), vocab=base.vocab)
+        app.catalog.publish_segment("index", "s0", write(base))
+        app.catalog.publish_segment("index", "s1", write(delta))
+        app.catalog.publish_generation("index", manifest(
+            gen=1, base="s0", deltas=["s1"], tombstones=[2, 40],
+            stats=stats([d for i, d in enumerate(docs) if i not in (2, 40)]),
+            vocab=delta.vocab))
+    for q in ("bi", "bo ma", ["bi", "zzz"]):
+        got, want = t.query(q, k=5), j.query(q, k=5)
+        assert got.status == 200 and got.body.get("version") == "gen-000001"
+        _assert_same_response(got, want)
