@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: drive the single-node BM25 query
-path on one NVIDIA GPU and hold every hand-written kernel against its plain
-PyTorch twin.
+path, the partitioned fleet and the LM serving path on one NVIDIA GPU and
+hold every hand-written kernel against its plain PyTorch twin.
 
     python3 chip_smoke.py                 # 1M-doc partition (the default)
     python3 chip_smoke.py --docs 250000   # a smaller partition
+    python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -42,7 +43,18 @@ Phases (each raises on failure; the script then exits non-zero):
      standard of the reference's parity tests (ext ids, and scores to 6
      decimals), on 64 queries whose terms have at most ``max_blocks``·128
      postings — the standard's own precondition: no impact-ordered
-     truncation in any partition or in the single node.
+     truncation in any partition or in the single node;
+  7. LM serving on K5: h2o-danube-1.8b at full width (24 layers, d 2560,
+     bf16, random weights from a seeded ``torch.Generator``). ``lm_prefill``
+     of 4 ``LMTokenStream`` prompts of 6,144 tokens (past the 4,096 window:
+     the window mask and the ring's roll both act) and 32 greedy
+     ``lm_decode`` steps against the ring, counters set to 0 before the
+     prefill and before the steps: 24 K5 launches per prefill and per step,
+     no other kernel. Then K5 against its twin, bitwise, on layer 0's real
+     q/k/v (prefill; decode with kv_len = slots and < slots; Dv != D), timed
+     beside the twin, ``scaled_dot_product_attention`` and the bound; last,
+     decode == forward at full width in f32 (2 prompts of 4,608 tokens, 8
+     steps; the reference test's rtol/atol 2e-2 and 5e-2).
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -53,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -79,11 +92,11 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` in ms, from CUDA events around ``reps``
-    calls after three warm-up calls."""
+    calls after ``warmup`` warm-up calls."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -356,7 +369,8 @@ def k4_phase(app, cfg, queries, torch, ref, k4, device):
 # Each hand-written kernel's name in a device trace. Its wrapper adds one to
 # its counter for each launch of it.
 TRACE_NAMES = {"K1": "pruned_accumulate_kernel", "K2": "topk_rounds_kernel",
-               "K3": "bm25_block_kernel", "K4": "dot_topk_chunks_kernel"}
+               "K3": "bm25_block_kernel", "K4": "dot_topk_chunks_kernel",
+               "K5": "flash_fwd_kernel"}
 PROFILE_ATTEMPTS = 3
 # Host-only time on either side of the recorded queries: the trace keeps a
 # device event only if its timestamp, moved to the host's clock, falls
@@ -558,9 +572,287 @@ def fleet_phase(docs, queries, single, torch, ref, kern, device="cuda"):
     return k4, launches, sizes
 
 
+# -- phase 7: LM serving on K5 ---------------------------------------------------------
+
+LM_ARCH = "h2o-danube-1.8b"
+LM_SERVE = dict(batch=4, prompt=6144, steps=32)     # prompts longer than the 4096 window
+LM_CHECK = dict(batch=2, prompt=4608, steps=8)      # decode == forward, f32
+BF16_FLOPS = 989e12            # H100 SXM, bf16 on the tensor cores (dense)
+
+
+def k5_bound(q, k, v, *, causal=False, window=None, kv_len=None) -> tuple[float, str]:
+    """The least time for one K5 call: operations on the visible (query,
+    key) pairs over the bf16 tensor-core peak (f32: the CUDA-core peak),
+    or q, k, v read and the output written once over the HBM rate."""
+    B, Hq, Sq, D = q.shape
+    Skv, Dv = k.shape[2], v.shape[-1]
+    qpos = np.arange(Sq) + (Skv - Sq)
+    hi = np.minimum(qpos + 1 if causal else Skv, Skv if kv_len is None else kv_len)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
+    pairs = int(np.maximum(hi - lo, 0).sum()) * B * Hq
+    size = q.element_size()
+    n_bytes = size * (q.numel() + k.numel() + v.numel() + B * Hq * Sq * Dv)
+    peak = BF16_FLOPS if size == 2 else F32_FLOPS
+    t_ops = 2 * (D + Dv) * pairs / peak * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(torch.equal(a.view(view), b.view(view)))
+
+
+def reset(kern) -> None:
+    for fn in kern.values():
+        fn.launches = 0
+
+
+def counted(kern, route: str, expected: dict) -> dict:
+    """The counters after a route's run: the ``expected`` kernels exactly
+    that often, every other kernel never."""
+    got = {name: fn.launches for name, fn in kern.items()}
+    want = {name: expected.get(name, 0) for name in kern}
+    require(got == want, f"{route}: launches {got}, expected {want}")
+    return got
+
+
+def lm_serve(model, cfg, prompts, steps, kern, torch, device):
+    """Phase 7b, the main path: ``lm_prefill`` on the prompts, then greedy
+    ``lm_decode`` steps; the launch counters set to 0 before the prefill and
+    before the decode steps, and read after each. Then a profiler window
+    over 5 more decode steps."""
+    from repro_torch.models.transformer import lm_decode, lm_prefill
+    B, S = prompts.shape
+    L = cfg.n_layers
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kern)
+    t0 = time.perf_counter()
+    logits, cache = lm_prefill(model, prompts, cfg, max_len=S + steps, device=device)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"lm:prefill": counted(kern, "lm:prefill", {"K5": L})}
+    require(bool(torch.isfinite(logits.float()).all()), "prefill logits not finite")
+    tok = logits.argmax(-1, keepdim=True)
+    step_ms, out = [], [tok]
+    reset(kern)
+    for t in range(steps):
+        before = kern["K5"].launches
+        t0 = time.perf_counter()
+        logits, cache = lm_decode(model, cache, tok, S + t, cfg, device=device)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        require(kern["K5"].launches - before == L, f"decode step {t}: "
+                f"{kern['K5'].launches - before} K5 launches, expected {L}")
+        out.append(tok)
+    launches["lm:decode"] = counted(kern, "lm:decode", {"K5": L * steps})
+    gen = torch.cat(out, dim=1)
+    require(bool(torch.isfinite(logits.float()).all()) and gen.shape == (B, steps + 1)
+            and bool(((gen >= 0) & (gen < cfg.vocab)).all()), "decode output malformed")
+    profile_window("7", "lm decode", lambda i: lm_decode(model, cache, tok, S + steps + i, cfg,
+                                                          device=device), range(6), kern)
+    t = np.array(step_ms)
+    r = dict(prefill_ms=prefill_ms, p50=float(np.percentile(t, 50)),
+             p99=float(np.percentile(t, 99)), tok_s=B * steps / (t.sum() / 1e3),
+             peak=torch.cuda.max_memory_allocated() - base, slots=cache["k"].shape[3])
+    print(f"[7] served {B} prompts x {S} tokens: prefill wall {prefill_ms:.1f} ms "
+          f"({B * S / prefill_ms * 1e3:.0f} prompt tokens/s); {steps} greedy decode steps "
+          f"against a ring of {r['slots']} slots: step wall p50 {r['p50']:.3f} ms p99 "
+          f"{r['p99']:.3f} ms, {r['tok_s']:.1f} tokens/s (batch {B}); K5 launches "
+          f"{launches['lm:prefill']['K5']} in the prefill, {L} in each decode step; "
+          f"max_memory_allocated {r['peak']} B above the {base} B held before the prefill (the "
+          f"weights and what earlier phases hold)", flush=True)
+    return r, launches, cache
+
+
+def sdpa_mask(torch, Sq, Skv, device, *, causal=False, window=None, kv_len=None):
+    """(Sq, Skv) bool, True where a query sees a key: K5's masks for
+    ``scaled_dot_product_attention``."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = (kpos < (Skv if kv_len is None else kv_len)).expand(Sq, Skv)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def k5_checks(model, cfg, prompts, cache, k5, ref, torch):
+    """Phase 7c: K5 against its twin, bitwise, on layer 0's real q/k/v at
+    the model's prefill and decode shapes (kv_len = slots and < slots) and
+    one Dv != D case; then the prefill and decode shapes timed beside the
+    twin, ``scaled_dot_product_attention`` (``enable_gqa`` and a boolean
+    mask for the window and kv_len) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import _qkv
+    S = prompts.shape[1]
+    slots = cache["k"].shape[3]
+    with torch.inference_mode():
+        lp = model.layers[0]
+        positions = torch.arange(S, dtype=torch.int32, device=prompts.device)
+        q, k, v = (t.contiguous() for t in _qkv(lp["attn"], rms_norm(
+            model.embed[prompts.long()], lp["ln1"]), cfg, positions))
+    kr, vr = cache["k"][0], cache["v"][0]                 # layer 0's ring
+    qd = q[:, :, -1:].contiguous()
+    n = 1024
+    cases = {
+        "prefill": (q, k, v, dict(causal=True, window=cfg.window)),
+        "decode": (qd, kr, vr, dict(kv_len=slots)),
+        "decode kv_len<slots": (qd, kr, vr, dict(kv_len=slots * 3 // 4)),
+        "Dv!=D": (q[:, :, :n].contiguous(), k[:, :, :n].contiguous(),
+                  v[:, :, :n, :64].contiguous(), dict(causal=True, window=cfg.window)),
+    }
+    out = {}
+    for name, (a, b, c, kw) in cases.items():
+        got, want = k5(a, b, c, **kw), ref.flash_attention_ref(a, b, c, **kw)
+        torch.cuda.synchronize()
+        require(same_bits(got, want), f"K5 != twin ({name})")
+        err = max_abs_err(got.float(), want.float())
+        oracle = None
+        if a.shape[2] * b.shape[2] <= 1 << 22:            # the dense oracle's scores fit
+            oracle = max_abs_err(got.float(), ref.mha_attention_ref(a, b, c, **kw).float())
+        out[name] = dict(err=err, oracle_err=oracle)
+        print(f"[7] K5 {name}: q {tuple(a.shape)} k {tuple(b.shape)} v {tuple(c.shape)} "
+              f"{a.dtype} {kw}: bitwise == twin (max abs err {err}); max abs err against "
+              f"the dense oracle {oracle}", flush=True)
+    for name in ("prefill", "decode"):
+        a, b, c, kw = cases[name]
+        mask = sdpa_mask(torch, a.shape[2], b.shape[2], a.device, **kw)
+        sdpa = lambda: F.scaled_dot_product_attention(a, b, c, attn_mask=mask,  # noqa: E731
+                                                      enable_gqa=True)
+        reps = 5 if name == "prefill" else 50
+        r = out[name]
+        r["ms"] = cuda_ms(lambda: k5(a, b, c, **kw), reps=reps)
+        r["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(a, b, c, **kw), reps=1,
+                                warmup=1)
+        try:
+            r["library_err"] = max_abs_err(sdpa().float(), k5(a, b, c, **kw).float())
+            r["library_ms"] = cuda_ms(sdpa, reps=reps)
+        except torch.cuda.OutOfMemoryError as e:
+            r["library_ms"], r["library_err"] = None, f"out of memory: {e}"
+            torch.cuda.empty_cache()
+        r["bound"] = k5_bound(a, b, c, **kw)
+        r["shape"] = (f"q {tuple(a.shape)}, k/v {tuple(b.shape)}, {a.dtype}, "
+                      f"{', '.join(f'{key}={val}' for key, val in kw.items())}")
+        print(f"[7] K5 {name} timing: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.1f} ms, "
+              f"scaled_dot_product_attention {r['library_ms']} ms (answer within "
+              f"{r['library_err']} of K5's), bound {r['bound'][0]:.4f} ms ({r['bound'][1]})",
+              flush=True)
+    return out
+
+
+def lm_check(arch, kern, torch, device="cuda", seed=1, check=LM_CHECK):
+    """Phase 7d, the reference's own invariant (``tests/test_models.py``):
+    prefill + decode steps reproduce the full forward's logits, at full
+    width in f32 with TF32 off, on prompts longer than the window."""
+    from repro_torch.data.lm import LMDataConfig, LMTokenStream
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import (LM, lm_decode, lm_forward, lm_param_defs,
+                                                lm_prefill)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = arch.full_config(dtype=torch.float32)
+    B, S, steps = check["batch"], check["prompt"], check["steps"]
+    L = cfg.n_layers
+    model = LM(init_params(lm_param_defs(cfg), torch.Generator(device).manual_seed(seed),
+                           device), cfg)
+    toks = torch.as_tensor(LMTokenStream(LMDataConfig(
+        vocab=cfg.vocab, batch=B, seq=S + steps, seed=seed)).batch(0)["tokens"]).to(device)
+    reset(kern)
+    full, _ = lm_forward(model, toks, cfg, device=device)
+    full = full[:, S - 1:].clone()
+    pl, cache = lm_prefill(model, toks[:, :S], cfg, max_len=S + steps, device=device)
+    errs = [max_abs_err(pl, full[:, 0])]
+    require(bool(torch.allclose(pl, full[:, 0], rtol=2e-2, atol=2e-2)),
+            f"f32 prefill logits != forward (max abs err {errs[0]})")
+    for t in range(steps):
+        step, cache = lm_decode(model, cache, toks[:, S + t:S + t + 1], S + t, cfg,
+                                device=device)
+        errs.append(max_abs_err(step, full[:, 1 + t]))
+        require(bool(torch.allclose(step, full[:, 1 + t], rtol=5e-2, atol=5e-2)),
+                f"f32 decode step {t} != forward (max abs err {errs[-1]})")
+    launches = counted(kern, "lm:f32-check", {"K5": L * (2 + steps)})
+    print(f"[7] decode == forward at full width in f32 ({B} prompts x {S} tokens, ring of "
+          f"{cache['k'].shape[3]} slots, {steps} steps): prefill logits max abs err "
+          f"{errs[0]:.3e} (rtol/atol 2e-2), decode steps max abs err {max(errs[1:]):.3e} "
+          f"(rtol/atol 5e-2); largest |logit| {float(full.abs().max()):.3f}", flush=True)
+    return launches
+
+
+def lm_phase(kern, ref, torch, arch_name=LM_ARCH, serve=LM_SERVE, check=LM_CHECK,
+             device="cuda", seed=0):
+    """Phase 7: the LM serving path on the card at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMDataConfig, LMTokenStream
+    from repro_torch.models.common import count_params, init_params
+    from repro_torch.models.transformer import LM, lm_decode, lm_param_defs, lm_prefill
+    t_phase = time.perf_counter()
+    arch = get_arch(arch_name)
+    cfg = arch.full_config()
+    defs = lm_param_defs(cfg)
+    t0 = time.perf_counter()
+    model = LM(init_params(defs, torch.Generator(device).manual_seed(seed), device), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    require(n_params == count_params(defs) == cfg.param_count(), "parameter count")
+    print(f"[7] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+          f"{cfg.window}, {cfg.dtype}: {n_params} parameters, {n_bytes} B, made from seed "
+          f"{seed} in {time.perf_counter() - t0:.1f} s", flush=True)
+    B, S, steps = serve["batch"], serve["prompt"], serve["steps"]
+    prompts = torch.as_tensor(LMTokenStream(LMDataConfig(
+        vocab=cfg.vocab, batch=B, seq=S, seed=seed)).batch(0)["tokens"]).to(device)
+    # warm the libraries up for both shapes: a short prefill and one decode step
+    logits, cache = lm_prefill(model, prompts[:, :128], cfg, max_len=128 + steps, device=device)
+    lm_decode(model, cache, logits.argmax(-1, keepdim=True), 128, cfg, device=device)
+    del logits, cache
+    torch.cuda.synchronize()
+    serve_r, launches, cache = lm_serve(model, cfg, prompts, steps, kern, torch, device)
+    checks = k5_checks(model, cfg, prompts, cache, kern["K5"], ref, torch)
+    del model, cache
+    torch.cuda.empty_cache()
+    launches["lm:f32-check"] = lm_check(arch, kern, torch, device, seed=seed + 1, check=check)
+    torch.cuda.empty_cache()
+    print(f"[7] phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return serve_r, checks, launches
+
+
+def k5_line(serve, k5, launches) -> dict:
+    """K5's entry in the kernels line: launches on the serving route
+    (prefill + decode steps), times at the prefill shape, the decode
+    shape's beside them."""
+    pre, dec = k5["prefill"], k5["decode"]
+    keys = ("ms", "plain_ms", "library_ms", "shape")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:128",
+        "launches": launches["lm:prefill"]["K5"] + launches["lm:decode"]["K5"],
+        "launches_on": "lm:prefill + lm:decode",
+        "launches_by_route": {route: c["K5"] for route, c in launches.items()},
+        "max_abs_err": max(r["err"] for r in k5.values()), "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound"][0], "bound_by": pre["bound"][1],
+        "library_ms": pre["library_ms"], "shape": pre["shape"],
+        "decode": {**{key: dec[key] for key in keys}, "bound_ms": dec["bound"][0],
+                   "bound_by": dec["bound"][1]},
+        "serve": {key: serve[key] for key in ("prefill_ms", "p50", "p99", "tok_s", "peak")},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
+    ap.add_argument("--lm-only", action="store_true",
+                    help="phases 1, 2 and 7 only (a shake-out of the LM path; prints no "
+                         "ok line)")
     args = ap.parse_args()
 
     import torch
@@ -575,6 +867,7 @@ def main() -> int:
         from repro_torch.kernels.bm25_block import bm25_block_scores
         from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
         from repro_torch.kernels.dot_topk import dot_topk_batch
+        from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.topk import topk
         from repro_torch.search import bm25
         from repro_torch.search.searcher import (SearchConfig, hydrate_searcher,
@@ -585,7 +878,8 @@ def main() -> int:
         return 2
     require(not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                     for m in sys.modules), "JAX or the JAX package was imported")
-    kern = {"K3": bm25_block_scores, "K2": topk, "K1": bm25_pruned_topk, "K4": dot_topk_batch}
+    kern = {"K3": bm25_block_scores, "K2": topk, "K1": bm25_pruned_topk, "K4": dot_topk_batch,
+            "K5": flash_attention}
     t_start = time.perf_counter()
 
     # 1. the card
@@ -601,6 +895,13 @@ def main() -> int:
         for line in (out / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[2] {name}: {line.strip()}", flush=True)
+
+    if args.lm_only:
+        serve, k5, lm_launches = lm_phase(kern, ref, torch)
+        print(json.dumps({"kernels": [k5_line(serve, k5, lm_launches)]}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --lm-only, a partial run", flush=True)
+        return 0
 
     # 3. data at real scale
     t0 = time.perf_counter()
@@ -644,6 +945,14 @@ def main() -> int:
     launches.update({f"fleet:{mode}": c for mode, c in fleet_launches.items()})
     print(f"[6] phases 1-6 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 7. LM serving at full width on K5, with the search apps released
+    del app, docs
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve, k5, lm_launches = lm_phase(kern, ref, torch)
+    launches.update(lm_launches)
+    print(f"[7] phases 1-7 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
     Q = len(queries)
     meta = {
         "K3": ("bm25_block_scores", "src/repro_torch/kernels/csrc/bm25_block.cu",
@@ -671,6 +980,7 @@ def main() -> int:
         "library_ms": k4[Q]["library_ms"],
         "shape": f"Q={Q}, N={sizes[0]}, D={VEC_DIM}, k={K}; ms includes K2's merge of "
                  f"{k4[Q]['survivors']} survivors"})
+    line["kernels"].append(k5_line(serve, k5, launches))
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bm25_block", "topk", "bm25_pruned", "dot_topk")
+SOURCES = ("bm25_block", "topk", "bm25_pruned", "dot_topk", "flash_attention")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # IEEE division (nvcc's default -prec-div=true) and no FMA contraction: each
 # arithmetic step rounds once, as the eager twins' ops do.
@@ -51,6 +51,9 @@ SIGNATURES = {
     },
     "dot_topk": {
         "dot_topk_chunks_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P]),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
     },
 }
 

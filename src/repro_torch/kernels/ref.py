@@ -30,6 +30,10 @@ A third is pinned because the library's depends on the shape:
 
 Top-k ties go to the lowest index (a stable descending sort), never
 ``torch.topk``, whose tie order is unspecified.
+
+K5's twin (:func:`flash_attention_ref`) pins the attention kernel's order
+the same way: each score a sum over d from +0, then Σp and Σp·v over each
+64-key tile's keys in order, one rounding a step.
 """
 
 from __future__ import annotations
@@ -195,3 +199,102 @@ def dot_topk_ref(query: torch.Tensor, cands: torch.Tensor, k: int, *,
     :func:`dot_topk_batch_ref`."""
     vals, ids = dot_topk_batch_ref(query[None, :], cands, k, chunk=chunk)
     return vals[0], ids[0]
+
+
+FLASH_BK = 64        # keys per K5 tile (csrc/flash_attention.cu's BK)
+
+
+def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
+                window: "int | None", kv_len: int) -> torch.Tensor:
+    """(rows, keys) bool: which keys each query row sees (query positions
+    ``qpos``, key positions ``kpos``)."""
+    m = (kpos < kv_len)[None, :].expand(qpos.shape[0], kpos.shape[0])
+    if causal:
+        m = m & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        m = m & (kpos[None, :] > qpos[:, None] - window)
+    return m
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = False, window: "int | None" = None,
+                        kv_len: "int | None" = None,
+                        sm_scale: "float | None" = None) -> torch.Tensor:
+    """Twin of K5: q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,Dv) →
+    (B,Hq,Sq,Dv) in q's dtype, queries at the end of the kv axis.
+
+    The kernel's steps, one eager op each, in f32: the G query heads of a
+    kv head fold into rows (row r sits at position ``r % Sq + Skv − Sq``);
+    kv tiles of 64 keys in order, each key's score summed over d from +0,
+    scaled, masked to -inf; the online softmax's running max, denominator
+    and accumulator, with ``Σ_j p_j`` and ``Σ_j p_j·v_j`` summed over the
+    tile's keys in order from +0. A tile that no row sees is skipped, which
+    changes no bit. Rows are independent, so all rows of all heads go
+    through each tile together."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    BH, rows, dev = B * Hkv, G * Sq, q.device
+    scale = torch.tensor(sm_scale if sm_scale is not None else float(D) ** -0.5,
+                         dtype=torch.float32, device=dev)
+    qT = q.reshape(BH, rows, D).float().permute(2, 0, 1).contiguous()   # (D, BH, rows)
+    kT = k.reshape(BH, Skv, D).float().permute(2, 0, 1).contiguous()    # (D, BH, Skv)
+    vf = v.reshape(BH, Skv, Dv).float()
+    kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
+    qpos = torch.arange(rows, device=dev) % Sq + (Skv - Sq)
+    neg = torch.tensor(float("-inf"), device=dev)
+    zero = torch.tensor(0.0, device=dev)
+    m = torch.full((BH, rows), float("-inf"), device=dev)
+    l = torch.zeros(BH, rows, device=dev)
+    acc = torch.zeros(BH, rows, Dv, device=dev)
+    # the keys some row sees: [k_lo, kv_len), the union of the rows' windows
+    # (the last row sits at Skv − 1, so causality cuts nothing off the end)
+    k_lo = max(0, Skv - Sq - window + 1) if window is not None else 0
+    for k0 in range(k_lo // FLASH_BK * FLASH_BK, kv_len, FLASH_BK):
+        bk = min(FLASH_BK, Skv - k0)
+        mask = attention_mask(qpos, torch.arange(k0, k0 + bk, device=dev), causal=causal,
+                           window=window, kv_len=kv_len)
+        s = torch.zeros(BH, rows, bk, device=dev)
+        for d in range(D):
+            s = s + qT[d][:, :, None] * kT[d][:, None, k0:k0 + bk]
+        s = torch.where(mask, s * scale, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, zero)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), zero)
+        alpha = torch.where(m == float("-inf"), zero, torch.exp(m - m_safe))
+        pT = p.permute(2, 0, 1).contiguous()                             # (bk, BH, rows)
+        psum = torch.zeros(BH, rows, device=dev)
+        pv = torch.zeros(BH, rows, Dv, device=dev)
+        for j in range(bk):
+            psum = psum + pT[j]
+            pv = pv + pT[j][..., None] * vf[:, None, k0 + j, :]
+        l = alpha * l + psum
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = torch.where(l[..., None] > 0, acc / l[..., None], zero)
+    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def mha_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = False, window: "int | None" = None,
+                      sm_scale: "float | None" = None,
+                      kv_len: "int | None" = None) -> torch.Tensor:
+    """Dense attention oracle: q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v
+    (B,Hkv,Skv,Dv); Hq % Hkv == 0. ``window``: key j visible to query i iff
+    i − W < j ≤ i, positions aligned at the sequence end; ``kv_len``: the
+    number of valid kv positions. Fully masked rows give 0."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / float(D) ** 0.5
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+    mask = attention_mask(qpos, torch.arange(Skv, device=q.device), causal=causal,
+                       window=window, kv_len=Skv if kv_len is None else int(kv_len))
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, Hq, Sq, Dv).to(q.dtype)

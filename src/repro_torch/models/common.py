@@ -1,0 +1,122 @@
+"""Model substrate: parameter declarations and the building blocks — the
+port of ``repro/models/common.py``.
+
+A model declares its parameters once as a tree (nested ``dict``) of
+:class:`ParamDef` (shape, logical axes, initializer, dtype). From it come
+``count_params`` (no allocation) and ``init_params`` (tensors from an
+explicit ``torch.Generator``). The logical axes are kept for the sharding
+rules of a later slice; nothing reads them yet.
+
+``jax.random`` and ``torch.Generator`` give different numbers from one
+seed, so parity tests carry the reference's own initial values across
+(:func:`repro_torch.models.weights.params_from_numpy`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.backend import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"          # normal | zeros | ones | embed
+    scale: float | None = None    # None → 1/sqrt(fan_in)
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted key order (the order of
+    ``jax.tree_util`` over dicts)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key]) for key in sorted(tree)}
+    return fn(tree)
+
+
+def count_params(defs) -> int:
+    return sum(math.prod(d.shape) for d in tree_leaves(defs))
+
+
+def _init_one(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
+    if d.init == "embed":
+        scale = d.scale if d.scale is not None else 0.02
+    x = torch.randn(d.shape, generator=generator, device=generator.device,
+                    dtype=torch.float32) * scale
+    return x.to(device=device, dtype=d.dtype)
+
+
+def init_params(defs, generator: torch.Generator, device) -> Any:
+    """Materialise every ParamDef on ``device``: zeros, ones, or normal
+    draws from ``generator`` (on its own device) scaled by 1/sqrt(fan_in),
+    or 0.02 for embeddings. Leaves are drawn in sorted key order.
+    ``device=None`` means the card, and raises without one."""
+    device = resolve_device(device)
+    return tree_map(lambda d: _init_one(d, generator, device), defs)
+
+
+# -- building blocks -------------------------------------------------------------
+
+
+def rms_norm(x, gamma, *, eps: float = 1e-6):
+    """Normalise in f32, cast back to x's dtype, then scale by gamma — the
+    reference's cast order."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def dense(x, w, b=None):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def gelu_mlp_defs(d_model: int, d_ff: int, dtype) -> dict:
+    return {
+        "wi": ParamDef((d_model, d_ff), ("embed", "mlp"), dtype=dtype),
+        "bi": ParamDef((d_ff,), ("mlp",), init="zeros", dtype=dtype),
+        "wo": ParamDef((d_ff, d_model), ("mlp", "embed"), dtype=dtype),
+        "bo": ParamDef((d_model,), ("embed",), init="zeros", dtype=dtype),
+    }
+
+
+def gelu_mlp(p, x):
+    """``jax.nn.gelu`` is the tanh approximation by default."""
+    return dense(F.gelu(dense(x, p["wi"], p["bi"]), approximate="tanh"), p["wo"], p["bo"])
+
+
+def swiglu_mlp_defs(d_model: int, d_ff: int, dtype) -> dict:
+    return {
+        "wg": ParamDef((d_model, d_ff), ("embed", "mlp"), dtype=dtype),
+        "wi": ParamDef((d_model, d_ff), ("embed", "mlp"), dtype=dtype),
+        "wo": ParamDef((d_ff, d_model), ("mlp", "embed"), dtype=dtype),
+    }
+
+
+def swiglu_mlp(p, x):
+    return dense(F.silu(dense(x, p["wg"])) * dense(x, p["wi"]), p["wo"])

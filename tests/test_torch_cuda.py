@@ -12,6 +12,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bm25_block import bm25_block_scores
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
 from repro_torch.kernels.dot_topk import dot_topk_batch
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.topk import topk
 
 _F32 = (np.float32(0.9), np.float32(0.4), np.float32(12.0))
@@ -104,8 +105,51 @@ def test_dot_topk_kernel_equals_twin(cuda, N, Q, D, k):
     assert _bits(v1[0], gv[-1]) and _bits(i1[0], gi[-1])
 
 
+# K5: (B, Hq, Hkv, Sq, Skv, D, Dv, masks, dtype). Every block shape of the
+# kernel (4, 16 and 64 rows), head dims 80 (h2o-danube) and 256, Dv ≠ D on
+# both sides of 128, the window, kv_len on a ring and nothing visible.
+K5_CASES = [
+    (1, 2, 2, 128, 128, 32, 32, dict(causal=True), torch.float32),
+    (2, 4, 2, 130, 130, 80, 80, dict(causal=True, window=40), torch.float32),
+    (2, 4, 2, 130, 130, 80, 80, dict(causal=True, window=40), torch.bfloat16),
+    (2, 8, 2, 1, 300, 80, 80, dict(kv_len=77), torch.bfloat16),
+    (2, 32, 8, 1, 4096, 80, 80, dict(kv_len=4096), torch.bfloat16),
+    (1, 8, 1, 1, 256, 32, 32, dict(kv_len=200), torch.float32),
+    (1, 4, 4, 128, 128, 48, 32, dict(causal=True), torch.float32),
+    (1, 4, 4, 100, 700, 64, 200, dict(kv_len=650, window=300), torch.bfloat16),
+    (1, 2, 1, 64, 64, 256, 256, dict(causal=True), torch.bfloat16),
+    (1, 4, 2, 1, 64, 16, 16, dict(kv_len=0), torch.float32),
+]
+
+
+def _same_bits(a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,Dv,kw,dtype", K5_CASES)
+def test_flash_attention_kernel_equals_twin(cuda, B, Hq, Hkv, Sq, Skv, D, Dv, kw, dtype):
+    g = torch.Generator(device=cuda).manual_seed(B * Skv + D)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Hkv, Skv, Dv, generator=g, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Hq, Sq, Dv) and _same_bits(got, want)
+    oracle = ref.mha_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), oracle, rtol=2e-2, atol=2e-2)
+
+
 def test_kernels_refuse_wrong_dtypes(cuda):
     tf = torch.zeros(2, 2, 128, dtype=torch.int32, device=cuda)
     dl = torch.ones(2, 2, 128, device=cuda)
     with pytest.raises(ValueError, match="u8/f32/f32"):
         bm25_block_scores(tf, dl, torch.ones(2, device=cuda), *_F32)
+    q = torch.zeros(1, 2, 4, 16, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention(q, q, q)

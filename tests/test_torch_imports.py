@@ -37,7 +37,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30          # every module was walked
+    assert int(out.stdout.strip()) >= 44          # every module was walked
 
 
 def test_sources_name_neither_jax_nor_repro():
@@ -78,3 +78,32 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert Searcher(packed, device="cpu").search_one(docs[0][1].split()[0])
+
+
+def test_lm_entry_points_need_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import (LM, lm_decode, lm_forward, lm_param_defs,
+                                                lm_prefill, make_cache)
+    from repro_torch.models.weights import params_from_numpy
+    cfg = get_arch("h2o-danube-1.8b").reduced_config()
+    defs = lm_param_defs(cfg)
+    tree = init_params(defs, torch.Generator().manual_seed(0), "cpu")
+    model = LM(tree, cfg)
+    toks = np.arange(6, dtype=np.int32).reshape(1, 6)
+    cache = make_cache(cfg, 1, 8, device="cpu")
+    numpy_tree = {"embed": tree["embed"].numpy()}
+    for call in (lambda: init_params(defs, torch.Generator(), None),
+                 lambda: params_from_numpy(numpy_tree, cfg),
+                 lambda: make_cache(cfg, 1, 8),
+                 lambda: lm_forward(model, toks, cfg),
+                 lambda: lm_prefill(model, toks, cfg, max_len=8),
+                 lambda: lm_decode(model, cache, toks[:, :1], 0, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    logits, cache = lm_prefill(model, toks, cfg, max_len=8, device="cpu")
+    logits, cache = lm_decode(model, cache, logits.argmax(-1, keepdim=True), 6, cfg,
+                              device="cpu")
+    assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all())
