@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: drive the single-node BM25 query
-path, the partitioned fleet and the LM serving path on one NVIDIA GPU and
-hold every hand-written kernel against its plain PyTorch twin.
+path, the partitioned fleet, the LM serving path and recsys serving on one
+NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
 
     python3 chip_smoke.py                 # 1M-doc partition (the default)
     python3 chip_smoke.py --docs 250000   # a smaller partition
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
+    python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -54,7 +55,25 @@ Phases (each raises on failure; the script then exits non-zero):
      q/k/v (prefill; decode with kv_len = slots and < slots; Dv != D), timed
      beside the twin, ``scaled_dot_product_attention`` and the bound; last,
      decode == forward at full width in f32 (2 prompts of 4,608 tokens, 8
-     steps; the reference test's rtol/atol 2e-2 and 5e-2).
+     steps; the reference test's rtol/atol 2e-2 and 5e-2);
+  8. recsys serving at full width (fm, dcn-v2, bst, bert4rec at
+     ``full_config()``, f32, random weights from a seeded
+     ``torch.Generator``, each architecture's tables released before the
+     next): ``serve_p99`` (512 rows of the repo's synthetic click-log or
+     sequence streams, seed 0, step 0) for all four, ``serve_bulk`` (262,144
+     rows) for fm and dcn-v2, and ``retrieval_cand`` (one user against
+     1,000,000 random f32 candidates, k = 100) on the K4 route and the plain
+     route for all four. The launch counters are set to 0 before each route
+     and checked after it: one K6 launch per fm forward and per fm or dcn-v2
+     tower, n_blocks K5 launches per bst or bert4rec encoder, K2 for every
+     top-k, K4 only on the K4 route, never K1 or K3. K6 equals its twin
+     bitwise on every architecture's real tables and batch ids and on a bf16
+     copy of a table; K5 its twin on the encoders' layer-0 q/k/v; fm and
+     dcn-v2 logits of 64 rows match a float64 evaluation on the host; the two
+     retrieval routes agree; bert4rec's serving top-100 equals a matmul +
+     ``ref.topk_ref``. K6 is timed beside its twin,
+     ``torch.nn.functional.embedding_bag`` and the bound at fm's linear term
+     (D 1), fm's tower (D 10) and dcn-v2's (D 16), 262,144 bags each.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -370,7 +389,7 @@ def k4_phase(app, cfg, queries, torch, ref, k4, device):
 # its counter for each launch of it.
 TRACE_NAMES = {"K1": "pruned_accumulate_kernel", "K2": "topk_rounds_kernel",
                "K3": "bm25_block_kernel", "K4": "dot_topk_chunks_kernel",
-               "K5": "flash_fwd_kernel"}
+               "K5": "flash_fwd_kernel", "K6": "embedding_bag_kernel"}
 PROFILE_ATTEMPTS = 3
 # Host-only time on either side of the recorded queries: the trace keeps a
 # device event only if its timestamp, moved to the host's clock, falls
@@ -847,11 +866,399 @@ def k5_line(serve, k5, launches) -> dict:
     }
 
 
+# -- phase 8: recsys serving on K6 --------------------------------------------------
+
+RECSYS_ARCHS = ("fm", "dcn-v2", "bst", "bert4rec")
+RECSYS_SHAPES = dict(serve_p99=512, serve_bulk=262_144, cands=1_000_000, k=100)
+# bst at serve_bulk would give K5 262,144 × 8 = 2,097,152 (batch · kv head)
+# blocks, past its grid's 65,535; bert4rec's bulk shares the limit
+BULK_ARCHS = ("fm", "dcn-v2")
+RECSYS_REPS = dict(serve_p99=30, serve_bulk=3, retrieval=5)
+ORACLE_ROWS = 64
+ORACLE_RTOL = 1e-5             # of the logit's summed magnitudes (FM's pair term cancels)
+RETRIEVAL_TOL = 1e-6           # of Σ_d |u_d·c_d|: two f32 orders of one dot
+# K6's timed shapes: (name, architecture, table) at serve_bulk
+K6_SHAPES = (("fm linear", "fm", "linear"), ("fm tower", "fm", "emb"),
+             ("dcn tower", "dcn-v2", "emb"))
+
+
+def recsys_batch(cfg, batch: int, seed: int = 0, step: int = 0) -> dict:
+    """A serving batch from the repo's synthetic streams, shaped as the
+    reference's recsys cells: fm {sparse}, dcn {dense, sparse}, bst {seq,
+    target}, bert4rec {seq}."""
+    from repro_torch.data.recsys_data import CTRStream, SequenceStream
+    if cfg.kind == "bert4rec":
+        return {"seq": SequenceStream(n_items=cfg.n_items, seq_len=cfg.seq_len, batch=batch,
+                                      seed=seed).batch_at(step)["seq"]}
+    out = CTRStream(n_sparse=cfg.n_sparse, rows_per_field=cfg.rows_per_field, batch=batch,
+                    n_dense=cfg.n_dense, seq_len=cfg.seq_len if cfg.kind == "bst" else 0,
+                    n_items=cfg.n_items, seed=seed).batch_at(step)
+    keys = {"fm": ("sparse",), "dcn": ("dense", "sparse"), "bst": ("seq", "target")}[cfg.kind]
+    return {k: out[k] for k in keys}
+
+
+def merge_rounds(survivors: int, k: int) -> int:
+    """K2 launches of ``topk.merge`` over ``survivors`` per row."""
+    from repro_torch.kernels.topk import DEFAULT_CHUNK
+    chunk, n = max(DEFAULT_CHUNK, 2 * k), 0
+    while survivors > k:
+        survivors, n = -(-survivors // chunk) * k, n + 1
+    return n
+
+
+def topk_launches(n: int, k: int) -> int:
+    """K2 launches of one ``topk`` over rows of ``n`` scores."""
+    from repro_torch.kernels.topk import DEFAULT_CHUNK
+    return 1 + merge_rounds(-(-n // max(DEFAULT_CHUNK, k)) * k, k)
+
+
+def timed_route(kern, route, fn, reps, expected, torch) -> list:
+    """``reps`` calls of ``fn`` after one warm-up, host clock around each
+    call ending in ``synchronize``; the launch counters set to 0 after the
+    warm-up and checked against ``expected`` (per call) after the reps."""
+    fn()
+    torch.cuda.synchronize()
+    reset(kern)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, counted(kern, route, {n: c * reps for n, c in expected.items()})
+
+
+def k6_case(k6, ref, table, ids, torch) -> float:
+    """K6 against its twin, bitwise, on all-ones weights; the max abs err."""
+    w = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+    got, want = k6(table, ids, w), ref.embedding_bag_ref(table, ids, w)
+    torch.cuda.synchronize()
+    require(bits_equal(got, want), f"K6 != twin on a {tuple(table.shape)} {table.dtype} table "
+                                   f"at ids {tuple(ids.shape)}")
+    return max_abs_err(got, want)
+
+
+def k6_timing(k6, ref, table, ids, torch) -> dict:
+    """K6 at one main-path shape: CUDA-event times of the kernel, its twin and
+    ``torch.nn.functional.embedding_bag`` (mode "sum", pads as id 0 with
+    weight 0), and the bound: idx, w, the distinct rows gathered and the
+    output, each moved once, over the HBM rate."""
+    import torch.nn.functional as F
+    w = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+    err = k6_case(k6, ref, table, ids, torch)
+    safe = torch.clamp(ids, min=0).long()
+    w_masked = torch.where(ids >= 0, w, 0.0)
+    lib = lambda: F.embedding_bag(safe, table, per_sample_weights=w_masked, mode="sum")  # noqa: E731
+    B, L = ids.shape
+    D = table.shape[1]
+    rows = int(torch.unique(ids[ids >= 0]).numel())
+    row_bytes = D * table.element_size()
+    sector_bytes = -(-row_bytes // 32) * 32                 # HBM moves 32-byte sectors
+    r = dict(err=err, ms=cuda_ms(lambda: k6(table, ids, w)),
+             plain_ms=cuda_ms(lambda: ref.embedding_bag_ref(table, ids, w), reps=3, warmup=1),
+             library_ms=cuda_ms(lib), library_err=max_abs_err(lib(), k6(table, ids, w)),
+             bound=bound_ms(B * L * 8 + rows * row_bytes + B * D * 4, 2 * B * L * D),
+             gathers_bound_ms=(B * L * (8 + row_bytes) + B * D * 4) / HBM_BYTES_PER_S * 1e3,
+             sector_bound_ms=(B * L * 8 + rows * sector_bytes + B * D * 4) / HBM_BYTES_PER_S
+             * 1e3,
+             rows=rows, shape=f"B={B}, L={L}, D={D}, table {tuple(table.shape)} {table.dtype}")
+    return r
+
+
+def fm_oracle(params, batch, cfg, logits, torch) -> float:
+    """FM logits of the first rows against a float64 evaluation of the same
+    rows gathered to the host; |Δ| ≤ ORACLE_RTOL × (|bias| + Σ|lin| +
+    ½Σ_d[(Σ_f|v|)² + Σ_f v²]). Returns the largest |Δ| / scale."""
+    from repro_torch.models.recsys import _flat_ids
+    ids = _flat_ids(cfg, torch.as_tensor(batch["sparse"][:ORACLE_ROWS]).to(
+        logits.device)).long()
+    v = params["emb"][ids].double().cpu().numpy()
+    lin = params["linear"][ids][..., 0].double().cpu().numpy()
+    bias = float(params["bias"][0])
+    s = v.sum(1)
+    want = bias + lin.sum(1) + 0.5 * (s * s - (v * v).sum(1)).sum(-1)
+    a = np.abs(v).sum(1)
+    scale = abs(bias) + np.abs(lin).sum(1) + 0.5 * (a * a + (v * v).sum(1)).sum(-1)
+    return float((np.abs(logits[:ORACLE_ROWS].double().cpu().numpy() - want) / scale).max())
+
+
+def dcn_oracle(params, batch, cfg, logits, torch) -> float:
+    """DCN-v2 logits of the first rows against a float64 evaluation on the
+    host; the scale is the same network run on magnitudes (|x0|, |W|, |b|).
+    Returns the largest |Δ| / scale."""
+    from repro_torch.models.recsys import _flat_ids
+    host = lambda t: t.double().cpu().numpy()                       # noqa: E731
+    ids = _flat_ids(cfg, torch.as_tensor(batch["sparse"][:ORACLE_ROWS]).to(
+        logits.device)).long()
+    v = host(params["emb"][ids])
+    x0 = np.concatenate([batch["dense"][:ORACLE_ROWS].astype(np.float64),
+                         v.reshape(v.shape[0], -1)], -1)
+    x, m = x0, np.abs(x0)
+    for i in range(cfg.n_cross_layers):
+        W, b = host(params[f"cross_w{i}"]), host(params[f"cross_b{i}"])
+        x = x0 * (x @ W + b) + x
+        m = np.abs(x0) * (m @ np.abs(W) + np.abs(b)) + m
+    n = len([k for k in params["mlp"] if k.startswith("w")])
+    for i in range(n):
+        W, b = host(params["mlp"][f"w{i}"]), host(params["mlp"][f"b{i}"])
+        x = x @ W + b
+        x = np.maximum(x, 0) if i < n - 1 else x
+        m = m @ np.abs(W) + np.abs(b)
+    W, b = host(params["head"]), host(params["head_b"])
+    want = (x @ W + b)[:, 0]
+    scale = (m @ np.abs(W) + np.abs(b))[:, 0]
+    return float((np.abs(logits[:ORACLE_ROWS].double().cpu().numpy() - want) / scale).max())
+
+
+def retrieval_agree(u, cand, kern_route, plain_route) -> int:
+    """The K4 route against the plain route: at each rank the ids are equal,
+    or the two rows' exact scores tie within RETRIEVAL_TOL·Σ_d|u_d·c_d|; each
+    route's scores are within the f32 error bound of a D-term dot (γ_D ·
+    Σ|u·c|) of the exact score of its id. Returns how many ranks differ."""
+    (kv, ki), (pv, pi) = kern_route, plain_route
+    u = u.double()
+    D = u.shape[0]
+    gamma = D * 2.0 ** -24 / (1 - D * 2.0 ** -24)
+    def exact(ids):
+        c = cand[ids.long()].double()
+        return (c @ u).cpu().numpy(), (c * u).abs().sum(-1).cpu().numpy()
+    (ke, ks), (pe, ps) = exact(ki), exact(pi)
+    for vals, e, sc, name in ((kv, ke, ks, "K4"), (pv, pe, ps, "plain")):
+        err = np.abs(vals.double().cpu().numpy() - e)
+        require(bool((err <= gamma * sc).all()), f"retrieval {name} route: a score off its "
+                                                 f"exact value by {float((err / sc).max())} Σ|u·c|")
+    ki, pi = ki.cpu().numpy(), pi.cpu().numpy()
+    differ = np.flatnonzero(ki != pi)
+    for r in differ:
+        require(abs(ke[r] - pe[r]) <= RETRIEVAL_TOL * max(ks[r], ps[r]),
+                f"retrieval rank {r}: K4 route id {ki[r]} != plain route id {pi[r]}, exact "
+                f"scores {ke[r]} and {pe[r]}")
+    return int(differ.size)
+
+
+def k5_encoder_check(params, cfg, seq, k5, ref, torch) -> float:
+    """K5 against its twin, bitwise, on the encoder's layer-0 q/k/v."""
+    from repro_torch.models.common import dense
+    from repro_torch.models.embedding import embedding_lookup
+    with torch.inference_mode():
+        x = embedding_lookup(params["item_emb"], seq) + params["pos_emb"][None, :seq.shape[1]]
+        p = params["b0"]
+        B, S, d = x.shape
+        H = cfg.n_heads
+        q, k, v = (dense(x, p[w]).reshape(B, S, H, d // H).transpose(1, 2).contiguous()
+                   for w in ("wq", "wk", "wv"))
+    got, want = k5(q, k, v), ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    require(same_bits(got, want), f"K5 != twin on {cfg.name}'s layer 0, q {tuple(q.shape)}")
+    return max_abs_err(got, want)
+
+
+def recsys_arch(name, kern, ref, torch, device, seed):
+    """Phase 8 for one architecture: build its tables on the card, serve,
+    retrieve, check; release nothing (the caller does)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as tr
+    from repro_torch.models.common import init_params, tree_leaves
+    cfg = get_arch(name).full_config()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(tr.recsys_param_defs(cfg), torch.Generator(device).manual_seed(seed),
+                         device)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    require(n_params == cfg.param_count(), f"{name}: parameter count")
+    print(f"[8] {name}: {n_params} parameters ({sum(t.numel() * 4 for t in leaves)} B of f32) "
+          f"made from seed {seed} in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    k = RECSYS_SHAPES["k"]
+    launches, errs = {}, []
+    b4r = cfg.kind == "bert4rec"
+    tower = {"K6": 1} if cfg.kind in ("fm", "dcn") else {"K5": cfg.n_blocks}
+    per_forward = {"fm": {"K6": 1}, "dcn": {}, "bst": {"K5": cfg.n_blocks},
+                   "bert4rec": {"K5": cfg.n_blocks,
+                                "K2": topk_launches(cfg.n_items + 2, k)}}[cfg.kind]
+
+    def serve(batch):
+        if b4r:
+            return tr.bert4rec_serve_topk(params, batch["seq"], cfg, k=k, device=device)
+        return tr.recsys_forward(params, batch, cfg, device=device)
+
+    # serve_p99, then serve_bulk: the main path, counters checked per route
+    t0 = time.perf_counter()
+    p99 = recsys_batch(cfg, RECSYS_SHAPES["serve_p99"], seed=seed)
+    sizes = {"serve_p99": (p99, RECSYS_REPS["serve_p99"])}
+    if name in BULK_ARCHS:
+        sizes["serve_bulk"] = (recsys_batch(cfg, RECSYS_SHAPES["serve_bulk"], seed=seed),
+                               RECSYS_REPS["serve_bulk"])
+    print(f"[8] {name}: batches from the synthetic streams in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    answers = {}
+    for shape, (batch, reps) in sizes.items():
+        route = f"recsys:{name}:{shape}"
+        ms, launches[route] = timed_route(kern, route, lambda: answers.__setitem__(
+            shape, serve(batch)), reps, per_forward, torch)
+        B = len(next(iter(batch.values())))
+        got = answers[shape]
+        if b4r:
+            vals, ids = got
+            require(vals.shape == (B, k) and bool(torch.isfinite(vals).all())
+                    and bool(((ids >= 0) & (ids < cfg.n_items + 2)).all()),
+                    f"{route}: top-k malformed")
+        else:
+            require(got.shape == (B,) and bool(torch.isfinite(got).all()), f"{route}: logits")
+        t = np.array(ms)
+        out[shape] = dict(p50=float(np.percentile(t, 50)), p99=float(np.percentile(t, 99)),
+                          rows_s=B / (np.percentile(t, 50) / 1e3), reps=reps)
+        print(f"[8] {route}: {reps} calls of {B} rows, wall p50 {out[shape]['p50']:.3f} ms "
+              f"p99 {out[shape]['p99']:.3f} ms ({out[shape]['rows_s']:.0f} rows/s at p50); "
+              f"launches {launches[route]}", flush=True)
+
+    for shape, (batch, _) in sizes.items():
+        profile_window("8", f"{name} {shape}", lambda _: serve(batch), range(6 if shape ==
+                       "serve_p99" else 3), kern)
+
+    # K6 against its twin on this architecture's real tables and ids
+    from repro_torch.models.recsys import _flat_ids
+    if cfg.kind in ("fm", "dcn"):
+        for shape, (batch, _) in sizes.items():
+            ids = _flat_ids(cfg, torch.as_tensor(batch["sparse"]).to(device))
+            tables = ("linear", "emb") if cfg.kind == "fm" else ("emb",)
+            errs += [k6_case(kern["K6"], ref, params[t], ids, torch) for t in tables]
+            if shape == "serve_p99" and cfg.kind == "fm":
+                errs.append(k6_case(kern["K6"], ref, params["emb"].to(torch.bfloat16), ids,
+                                    torch))
+        out["k6"] = {label: k6_timing(kern["K6"], ref, params[table], _flat_ids(
+            cfg, torch.as_tensor(sizes["serve_bulk"][0]["sparse"]).to(device)), torch)
+            for label, arch, table in K6_SHAPES if arch == name}
+        oracle = (fm_oracle if cfg.kind == "fm" else dcn_oracle)(params, p99, cfg,
+                                                                answers["serve_p99"], torch)
+        require(oracle <= ORACLE_RTOL, f"{name}: logits off the float64 evaluation by "
+                                       f"{oracle} of their magnitude")
+        out["oracle"] = oracle
+        print(f"[8] {name}: K6 == twin bitwise on the real tables and batch ids"
+              f"{' (and a bf16 copy of emb)' if cfg.kind == 'fm' else ''}; logits of "
+              f"{ORACLE_ROWS} rows within {oracle:.3e} of their summed magnitudes of a float64 "
+              f"evaluation (limit {ORACLE_RTOL})", flush=True)
+    else:
+        seq = torch.as_tensor(p99["seq"]).to(device)
+        errs.append(k6_case(kern["K6"], ref, params["item_emb"], seq.to(torch.int32), torch))
+        out["k5_err"] = k5_encoder_check(params, cfg, seq, kern["K5"], ref, torch)
+        print(f"[8] {name}: K6 == twin bitwise on the item table pooled over the histories "
+              f"{tuple(seq.shape)}; K5 == twin bitwise on layer 0's q/k/v", flush=True)
+    if b4r:
+        with torch.inference_mode():
+            seq = torch.as_tensor(p99["seq"]).to(device)
+            x = tr._bert4rec_hidden(params, seq, cfg)[:, -1]
+            logits = x @ params["item_emb"].T + params["out_b"]
+            want = ref.topk_ref(logits, k)
+        got = answers["serve_p99"]
+        require(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
+                "bert4rec serving top-k != matmul + ref.topk_ref")
+        # K2 at the vocabulary top-k: the serving route's largest kernel
+        out["k2_vocab"] = dict(
+            ms=cuda_ms(lambda: kern["K2"](logits, k), reps=5),
+            library_ms=cuda_ms(lambda: torch.topk(logits, k, dim=-1), reps=5),
+            bound=bound_ms(logits.numel() * 4 + logits.shape[0] * k * 8, logits.numel()),
+            shape=f"Q={logits.shape[0]}, N={logits.shape[1]}, k={k}")
+        r = out["k2_vocab"]
+        print(f"[8] bert4rec: serving top-{k} == matmul + ref.topk_ref on the card (ids, bits); "
+              f"K2 at {r['shape']}: kernel {r['ms']:.3f} ms, torch.topk {r['library_ms']:.3f} "
+              f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+        del logits, want
+
+    # retrieval_cand on both routes
+    D = cfg.embed_dim
+    cand = torch.randn(RECSYS_SHAPES["cands"], D, device=device,
+                       generator=torch.Generator(device).manual_seed(seed + 1))
+    user = {key: v[:1] for key, v in p99.items()}
+    routes = {}
+    for use_kernel in (True, False):
+        tag = "K4" if use_kernel else "plain"
+        route = f"recsys:{name}:retrieval:{tag}"
+        expected = dict(tower)
+        if use_kernel:
+            expected["K4"] = 1
+            expected["K2"] = merge_rounds(-(-RECSYS_SHAPES["cands"] // 1024) * k, k)
+        else:
+            expected["K2"] = topk_launches(RECSYS_SHAPES["cands"], k)
+        ms, launches[route] = timed_route(kern, route, lambda: routes.__setitem__(
+            tag, tr.retrieval_topk(params, user, cfg, cand, k, use_kernel=use_kernel,
+                                   device=device)), RECSYS_REPS["retrieval"], expected, torch)
+        out[f"retrieval_{tag}"] = dict(p50=float(np.percentile(ms, 50)), min=float(min(ms)))
+    u = tr.user_vector(params, user, cfg, device=device)[0]
+    differ = retrieval_agree(u, cand, routes["K4"], routes["plain"])
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    print(f"[8] {name}: retrieval 1 x {RECSYS_SHAPES['cands']} candidates, k={k}: K4 route wall "
+          f"p50 {out['retrieval_K4']['p50']:.3f} ms, plain route (matmul + K2) p50 "
+          f"{out['retrieval_plain']['p50']:.3f} ms; routes agree ({differ} ranks differ by a "
+          f"tie within {RETRIEVAL_TOL} Σ|u·c|); launches "
+          f"{launches[f'recsys:{name}:retrieval:K4']} (K4), "
+          f"{launches[f'recsys:{name}:retrieval:plain']} (plain); max_memory_allocated "
+          f"{out['peak']} B above the {base} B held before {name}", flush=True)
+    del params, cand
+    return out, launches, errs
+
+
+def recsys_phase(kern, ref, torch, device="cuda", seed=0):
+    """Phase 8: the four recsys architectures at full width on the card."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results, launches, errs = {}, {}, []
+    for name in RECSYS_ARCHS:
+        r, l, e = recsys_arch(name, kern, ref, torch, device, seed)
+        results[name] = r
+        launches.update(l)
+        errs += e
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, arch, _ in K6_SHAPES:
+        t = results[arch]["k6"][label]
+        print(f"[8] K6 {label} ({t['shape']}, {t['rows']} distinct rows): kernel {t['ms']:.4f} "
+              f"ms, twin {t['plain_ms']:.3f} ms, F.embedding_bag {t['library_ms']:.4f} ms (within "
+              f"{t['library_err']:.3e} of K6), bound {t['bound'][0]:.4f} ms ({t['bound'][1]}; "
+              f"{t['sector_bound_ms']:.4f} ms with each distinct row a whole number of 32-byte "
+              f"sectors, {t['gathers_bound_ms']:.4f} ms if every gather moved its row)",
+              flush=True)
+    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results, launches, max(errs)
+
+
+def k6_line(results, launches, err) -> dict:
+    """K6's entry in the kernels line: launches summed over phase 8's routes,
+    times at fm's tower shape, the other two shapes beside them."""
+    shapes = {label: results[arch]["k6"][label] for label, arch, _ in K6_SHAPES}
+    keys = ("ms", "plain_ms", "library_ms", "shape", "rows", "sector_bound_ms",
+            "gathers_bound_ms")
+    head = shapes["fm tower"]
+    by_route = {route: c["K6"] for route, c in launches.items()}
+    return {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:63",
+        "launches": sum(by_route.values()), "launches_on": "recsys:* (phase 8)",
+        "launches_by_route": by_route, "max_abs_err": err,
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+        "bound_by": head["bound"][1], "library_ms": head["library_ms"], "shape": head["shape"],
+        "shapes": {label: {**{key: r[key] for key in keys}, "bound_ms": r["bound"][0],
+                           "bound_by": r["bound"][1]} for label, r in shapes.items()},
+        "serve": {name: {key: r[key] for key in ("serve_p99", "serve_bulk", "retrieval_K4",
+                                                 "retrieval_plain", "peak", "k2_vocab")
+                         if key in r}
+                  for name, r in results.items()},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--lm-only", action="store_true",
                     help="phases 1, 2 and 7 only (a shake-out of the LM path; prints no "
+                         "ok line)")
+    ap.add_argument("--recsys-only", action="store_true",
+                    help="phases 1, 2 and 8 only (a shake-out of the recsys path; prints no "
                          "ok line)")
     args = ap.parse_args()
 
@@ -867,6 +1274,7 @@ def main() -> int:
         from repro_torch.kernels.bm25_block import bm25_block_scores
         from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
         from repro_torch.kernels.dot_topk import dot_topk_batch
+        from repro_torch.kernels.embedding_bag import embedding_bag
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.topk import topk
         from repro_torch.search import bm25
@@ -879,7 +1287,7 @@ def main() -> int:
     require(not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                     for m in sys.modules), "JAX or the JAX package was imported")
     kern = {"K3": bm25_block_scores, "K2": topk, "K1": bm25_pruned_topk, "K4": dot_topk_batch,
-            "K5": flash_attention}
+            "K5": flash_attention, "K6": embedding_bag}
     t_start = time.perf_counter()
 
     # 1. the card
@@ -901,6 +1309,12 @@ def main() -> int:
         print(json.dumps({"kernels": [k5_line(serve, k5, lm_launches)]}), flush=True)
         print(smi, flush=True)
         print("chip_smoke: --lm-only, a partial run", flush=True)
+        return 0
+    if args.recsys_only:
+        results, rs_launches, err = recsys_phase(kern, ref, torch)
+        print(json.dumps({"kernels": [k6_line(results, rs_launches, err)]}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --recsys-only, a partial run", flush=True)
         return 0
 
     # 3. data at real scale
@@ -953,6 +1367,13 @@ def main() -> int:
     launches.update(lm_launches)
     print(f"[7] phases 1-7 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 8. recsys serving at full width on K6 (K5, K4, K2 beside it)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results, rs_launches, k6_err = recsys_phase(kern, ref, torch)
+    launches.update(rs_launches)
+    print(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
     Q = len(queries)
     meta = {
         "K3": ("bm25_block_scores", "src/repro_torch/kernels/csrc/bm25_block.cu",
@@ -981,6 +1402,7 @@ def main() -> int:
         "shape": f"Q={Q}, N={sizes[0]}, D={VEC_DIM}, k={K}; ms includes K2's merge of "
                  f"{k4[Q]['survivors']} survivors"})
     line["kernels"].append(k5_line(serve, k5, launches))
+    line["kernels"].append(k6_line(results, rs_launches, k6_err))
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bm25_block", "topk", "bm25_pruned", "dot_topk", "flash_attention")
+SOURCES = ("bm25_block", "topk", "bm25_pruned", "dot_topk", "flash_attention",
+           "embedding_bag")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # IEEE division (nvcc's default -prec-div=true) and no FMA contraction: each
 # arithmetic step rounds once, as the eager twins' ops do.
@@ -54,6 +55,9 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
+    },
+    "embedding_bag": {
+        "embedding_bag_launch": (_I, [_P] * 4 + [_LL, _I, _I, _I, _P]),
     },
 }
 

@@ -33,7 +33,8 @@ Top-k ties go to the lowest index (a stable descending sort), never
 
 K5's twin (:func:`flash_attention_ref`) pins the attention kernel's order
 the same way: each score a sum over d from +0, then Σp and Σp·v over each
-64-key tile's keys in order, one rounding a step.
+64-key tile's keys in order, one rounding a step. K6's
+(:func:`embedding_bag_ref`) sums each bag's weighted rows slot by slot.
 """
 
 from __future__ import annotations
@@ -298,3 +299,25 @@ def mha_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
+                      weights: torch.Tensor) -> torch.Tensor:
+    """Twin of K6: table (V, D) f32 or bf16, idx (B, L) int (< 0: padding),
+    weights (B, L) → (B, D) f32, ``out[b] = Σ_l w[b,l]·f32(table[idx[b,l]])``.
+
+    The kernel's order: ``acc = +0.0``, then slot by slot in l order
+    ``acc = acc + row·w``, the product and the sum each rounded once. A pad
+    slot leaves ``acc`` as it was (``where``, not a zero weight), as the
+    kernel skips it: the row a pad gathers (row 0) can change no bit, not
+    even turn the sum into NaN. The reference's own twin is an ``einsum``,
+    whose order is unspecified."""
+    B, L = idx.shape
+    valid = idx >= 0
+    safe = torch.clamp(idx, min=0).long()
+    w = weights.float()
+    acc = torch.zeros(B, table.shape[1], dtype=torch.float32, device=table.device)
+    for l in range(L):
+        row = table[safe[:, l]].float()
+        acc = torch.where(valid[:, l, None], acc + row * w[:, l, None], acc)
+    return acc

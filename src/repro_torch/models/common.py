@@ -89,6 +89,16 @@ def rms_norm(x, gamma, *, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
+def layer_norm(x, gamma, beta, *, eps: float = 1e-5):
+    """Statistics in f32 — the mean and the population variance, as
+    ``jnp.var`` — cast back to x's dtype, then scale and shift."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * gamma + beta
+
+
 def dense(x, w, b=None):
     y = x @ w
     if b is not None:
@@ -120,3 +130,25 @@ def swiglu_mlp_defs(d_model: int, d_ff: int, dtype) -> dict:
 
 def swiglu_mlp(p, x):
     return dense(F.silu(dense(x, p["wg"])) * dense(x, p["wi"]), p["wo"])
+
+
+def mlp_stack_defs(dims: tuple[int, ...], dtype) -> dict:
+    """Plain ReLU MLP tower (recsys). dims = (in, h1, ..., out). The
+    reference's ``final_axis``, ``act`` and ``final_act`` options have no
+    caller and are not taken."""
+    out = {}
+    for i in range(len(dims) - 1):
+        ax_in = "embed" if i == 0 else None
+        out[f"w{i}"] = ParamDef((dims[i], dims[i + 1]), (ax_in, None), dtype=dtype)
+        out[f"b{i}"] = ParamDef((dims[i + 1],), (None,), init="zeros", dtype=dtype)
+    return out
+
+
+def mlp_stack(p, x):
+    """ReLU between the layers, none after the last."""
+    n = len([k for k in p if k.startswith("w")])
+    for i in range(n):
+        x = dense(x, p[f"w{i}"], p[f"b{i}"])
+        if i < n - 1:
+            x = F.relu(x)
+    return x

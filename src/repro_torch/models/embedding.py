@@ -1,0 +1,73 @@
+"""Embedding lookup and EmbeddingBag — the port of ``repro/models/embedding.py``.
+
+* ``embedding_lookup`` — ``index_select`` of whole rows (the reference's
+  ``jnp.take``).
+* ``embedding_bag`` — ``torch.nn.EmbeddingBag`` semantics in the offsets
+  form: the ragged bags are laid out as padded ``(n_bags, L_max)`` ids and
+  weights (pad id -1) and summed by K6
+  (:func:`repro_torch.kernels.embedding_bag.embedding_bag`: the hand kernel on
+  a CUDA tensor, its twin on a CPU tensor). The reference gathers, scales
+  and ``segment_sum``\\ s instead; its order on the CPU is the bag's, slot by
+  slot, which is K6's.
+
+The row-sharded lookups (``sharded_lookup_local``,
+``sharded_lookup_shardmap``) belong to the mesh path, ROADMAP Queue 1 item 6,
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.embedding_bag import embedding_bag as _k6
+
+_MESH = "the row-sharded lookup runs on the mesh path, not ported yet (ROADMAP Queue 1 item 6)"
+
+
+def embedding_lookup(table: torch.Tensor, idx) -> torch.Tensor:
+    """table (R, D), idx (...,) int in [0, R) → (..., D)."""
+    idx = torch.as_tensor(idx, device=table.device)
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(*idx.shape, table.shape[1])
+
+
+def sharded_lookup_local(table_shard, idx, axis_name: str = "model"):
+    raise NotImplementedError(_MESH)
+
+
+def sharded_lookup_shardmap(mesh, table, idx, *, axis_name: str = "model",
+                            batch_axis: "str | None" = "data"):
+    raise NotImplementedError(_MESH)
+
+
+def embedding_bag(table: torch.Tensor, indices, offsets, n_bags: int, *,
+                  weights=None, mode: str = "sum") -> torch.Tensor:
+    """``torch.nn.EmbeddingBag`` semantics (offsets form, fixed ``n_bags``).
+
+    indices (L,) int; offsets (n_bags,) int, non-decreasing — bag b covers
+    ``indices[offsets[b]:offsets[b+1]]``, the last bag runs to the end, and
+    positions before ``offsets[0]`` belong to no bag; weights (L,) optional.
+    ``"mean"`` divides each sum by ``max(count, 1)``. Sums are f32 (K6) and
+    come back in the table's dtype, where the reference sums a bf16 table in
+    bf16."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(mode)
+    dev = table.device
+    indices = torch.as_tensor(indices, device=dev)
+    offsets = torch.as_tensor(offsets, device=dev).long()
+    L = indices.shape[0]
+    pos = torch.arange(L, device=dev)
+    bag = torch.searchsorted(offsets, pos, right=True) - 1
+    live = (bag >= 0) & (bag < n_bags)
+    bag, pos = bag[live], pos[live]
+    slot = pos - offsets[bag]
+    count = torch.bincount(bag, minlength=n_bags)[:n_bags]
+    width = int(count.max()) if bag.numel() else 0
+    idx = torch.full((n_bags, width), -1, dtype=torch.int32, device=dev)
+    w = torch.zeros((n_bags, width), dtype=torch.float32, device=dev)
+    idx[bag, slot] = indices[pos].to(torch.int32)
+    w[bag, slot] = (torch.as_tensor(weights, device=dev)[pos].float()
+                    if weights is not None else 1.0)
+    out = _k6(table, idx, w)
+    if mode == "mean":
+        out = out / torch.clamp(count, min=1).float()[:, None]
+    return out.to(table.dtype)

@@ -1,9 +1,11 @@
-"""Weights across packages: the JAX package's LM parameter tree, given as
-numpy arrays, into the port's :class:`~repro_torch.models.transformer.LM`.
+"""Weights across packages: the JAX package's parameter trees, given as
+numpy arrays, into the port's models — the LM's into
+:class:`~repro_torch.models.transformer.LM`, the recsys models' into the
+same nested dict of tensors.
 
-The reference stacks every layer's parameters on a leading ``layers`` axis
-(its ``lax.scan``); :class:`LM` slices that axis into its ``ModuleList``.
-Keys and shapes must match ``lm_param_defs(cfg)`` exactly."""
+The reference stacks every LM layer's parameters on a leading ``layers``
+axis (its ``lax.scan``); :class:`LM` slices that axis into its
+``ModuleList``. Keys and shapes must match the defs exactly."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.common import ParamDef
+from repro_torch.models.recsys import RecsysConfig, recsys_param_defs
 from repro_torch.models.transformer import LM, LMConfig, lm_param_defs
 
 
@@ -34,3 +37,10 @@ def params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> LM:
     (or a checkpoint of it) with numpy leaves → the port's module on
     ``device`` (``None``: the card), each leaf in ``cfg.dtype``."""
     return LM(_convert(tree, lm_param_defs(cfg), "", resolve_device(device)), cfg)
+
+
+def recsys_params_from_numpy(tree: dict, cfg: RecsysConfig, device=None) -> dict:
+    """``tree``: the reference's ``init_params(recsys_param_defs(cfg), key)``
+    with numpy leaves → the port's tree of tensors on ``device`` (``None``:
+    the card), each leaf in ``cfg.dtype``."""
+    return _convert(tree, recsys_param_defs(cfg), "", resolve_device(device))

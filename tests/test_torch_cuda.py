@@ -12,6 +12,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bm25_block import bm25_block_scores
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
 from repro_torch.kernels.dot_topk import dot_topk_batch
+from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.topk import topk
 
@@ -107,7 +108,8 @@ def test_dot_topk_kernel_equals_twin(cuda, N, Q, D, k):
 
 # K5: (B, Hq, Hkv, Sq, Skv, D, Dv, masks, dtype). Every block shape of the
 # kernel (4, 16 and 64 rows), head dims 80 (h2o-danube) and 256, Dv ≠ D on
-# both sides of 128, the window, kv_len on a ring and nothing visible.
+# both sides of 128, the window, kv_len on a ring and nothing visible; the
+# recsys encoders' bidirectional shapes last.
 K5_CASES = [
     (1, 2, 2, 128, 128, 32, 32, dict(causal=True), torch.float32),
     (2, 4, 2, 130, 130, 80, 80, dict(causal=True, window=40), torch.float32),
@@ -119,6 +121,8 @@ K5_CASES = [
     (1, 4, 4, 100, 700, 64, 200, dict(kv_len=650, window=300), torch.bfloat16),
     (1, 2, 1, 64, 64, 256, 256, dict(causal=True), torch.bfloat16),
     (1, 4, 2, 1, 64, 16, 16, dict(kv_len=0), torch.float32),
+    (16, 8, 8, 21, 21, 4, 4, {}, torch.float32),           # BST: dh 4, history + target
+    (4, 2, 2, 200, 200, 32, 32, {}, torch.float32),         # BERT4Rec: dh 32, 200 items
 ]
 
 
@@ -143,6 +147,37 @@ def test_flash_attention_kernel_equals_twin(cuda, B, Hq, Hkv, Sq, Skv, D, Dv, kw
     assert got.shape == (B, Hq, Sq, Dv) and _same_bits(got, want)
     oracle = ref.mha_attention_ref(q.float(), k.float(), v.float(), **kw)
     torch.testing.assert_close(got.float(), oracle, rtol=2e-2, atol=2e-2)
+
+
+# K6: (B, L, D, table dtype). FM's linear table (D 1) and tower (D 10),
+# DCN-v2's (D 16), BST's and wider rows; B no multiple of a block's bags;
+# L past one staged tile of slots (15 at D 1); D past one block's 256
+# columns; a bag of length 0.
+K6_CASES = [(37, 39, 1, torch.float32), (1000, 64, 1, torch.bfloat16),
+            (300, 39, 10, torch.float32), (17, 26, 16, torch.float32),
+            (17, 26, 16, torch.bfloat16), (5, 64, 32, torch.float32),
+            (9, 20, 128, torch.bfloat16), (3, 40, 300, torch.float32),
+            (33, 0, 8, torch.float32)]
+
+
+@pytest.mark.parametrize("B,L,D,dtype", K6_CASES)
+def test_embedding_bag_kernel_equals_twin(cuda, B, L, D, dtype):
+    """Pads (-1) scattered through the bags, bag 0 all pads, repeated ids."""
+    rng = np.random.default_rng(B * 131 + L * 7 + D)
+    V = 5000
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)).to(cuda, dtype)
+    idx = rng.integers(0, V, (B, L)).astype(np.int32)
+    idx[rng.random((B, L)) < 0.25] = -1
+    idx[0] = -1
+    w = rng.standard_normal((B, L)).astype(np.float32)
+    idx, w = _on(cuda, idx, w)
+    before = embedding_bag.launches
+    got = embedding_bag(table, idx, w)
+    assert embedding_bag.launches == before + 1
+    want = ref.embedding_bag_ref(table, idx, w)
+    torch.cuda.synchronize()
+    assert got.shape == (B, D) and _bits(got, want)
+    assert not got[0].any()
 
 
 def test_kernels_refuse_wrong_dtypes(cuda):

@@ -26,6 +26,11 @@ def test_every_module_imports_without_jax_or_repro():
             names.append(m.name)
         for name in names:
             importlib.import_module(name)
+        recsys = ["repro_torch.kernels.embedding_bag", "repro_torch.models.embedding",
+                  "repro_torch.models.recsys", "repro_torch.data.recsys_data",
+                  "repro_torch.configs.fm", "repro_torch.configs.dcn_v2",
+                  "repro_torch.configs.bst", "repro_torch.configs.bert4rec"]
+        assert set(recsys) <= set(names), sorted(set(recsys) - set(names))
         spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -37,7 +42,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 44          # every module was walked
+    assert int(out.stdout.strip()) >= 52          # every module was walked
 
 
 def test_sources_name_neither_jax_nor_repro():
@@ -107,3 +112,32 @@ def test_lm_entry_points_need_a_card_unless_asked_for_cpu():
     logits, cache = lm_decode(model, cache, logits.argmax(-1, keepdim=True), 6, cfg,
                               device="cpu")
     assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all())
+
+
+def test_recsys_entry_points_need_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys
+    from repro_torch.models.common import init_params
+    from repro_torch.models.weights import recsys_params_from_numpy
+    cfg = get_arch("fm").reduced_config()
+    defs = recsys.recsys_param_defs(cfg)
+    params = init_params(defs, torch.Generator().manual_seed(0), "cpu")
+    batch = {"sparse": np.arange(2 * cfg.n_sparse, dtype=np.int32).reshape(2, -1) % 7}
+    cand = np.ones((30, cfg.embed_dim), np.float32)
+    for call in (lambda: init_params(defs, torch.Generator(), None),
+                 lambda: recsys_params_from_numpy({k: v.numpy() for k, v in params.items()},
+                                                  cfg),
+                 lambda: recsys.recsys_forward(params, batch, cfg),
+                 lambda: recsys.user_vector(params, batch, cfg),
+                 lambda: recsys.retrieval_topk(params, batch, cfg, cand, 5)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    b4r = get_arch("bert4rec").reduced_config()
+    b4r_params = init_params(recsys.recsys_param_defs(b4r), torch.Generator(), "cpu")
+    seq = np.zeros((2, b4r.seq_len), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recsys.bert4rec_serve_topk(b4r_params, seq, b4r, k=5)
+    assert recsys.recsys_forward(params, batch, cfg, device="cpu").shape == (2,)
+    assert recsys.bert4rec_serve_topk(b4r_params, seq, b4r, k=5, device="cpu")[1].shape == (2, 5)

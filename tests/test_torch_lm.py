@@ -22,14 +22,14 @@ import torch
 from repro.configs import get_arch as j_get_arch
 from repro.models import transformer as jtr
 from repro.models.common import init_params as j_init_params
-from repro_torch.configs import ARCH_MODULES, get_arch
+from repro_torch.configs import family, get_arch
 from repro_torch.models import transformer as ttr
 from repro_torch.models.common import count_params, init_params, tree_leaves
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.weights import params_from_numpy
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = sorted(ARCH_MODULES)
+ARCHS = family("lm")
 
 
 @pytest.fixture(autouse=True)
