@@ -387,9 +387,12 @@ def k4_phase(app, cfg, queries, torch, ref, k4, device):
 
 # Each hand-written kernel's name in a device trace. Its wrapper adds one to
 # its counter for each launch of it.
-TRACE_NAMES = {"K1": "pruned_accumulate_kernel", "K2": "topk_rounds_kernel",
-               "K3": "bm25_block_kernel", "K4": "dot_topk_chunks_kernel",
-               "K5": "flash_fwd_kernel", "K6": "embedding_bag_kernel"}
+# K5's three kernels (f32 CUDA cores, bf16 tensor cores, bf16 split-KV) each
+# count once a call; split-KV's merge launch is not counted.
+TRACE_NAMES = {"K1": ("pruned_accumulate_kernel",), "K2": ("topk_rounds_kernel",),
+               "K3": ("bm25_block_kernel",), "K4": ("dot_topk_chunks_kernel",),
+               "K5": ("flash_fwd_kernel", "flash_tc_fwd_kernel", "flash_split_fwd_kernel"),
+               "K6": ("embedding_bag_kernel",)}
 PROFILE_ATTEMPTS = 3
 # Host-only time on either side of the recorded queries: the trace keeps a
 # device event only if its timestamp, moved to the host's clock, falls
@@ -416,8 +419,7 @@ def profile_window(tag, name, run, queries, kern) -> None:
             run(queries[0])
             torch.cuda.synchronize()
             prof.step()
-            for fn in kern.values():
-                fn.launches = 0
+            reset(kern)
             time.sleep(PROFILE_MARGIN_S)
             t0 = time.perf_counter()
             for q in queries[1:]:
@@ -433,7 +435,8 @@ def profile_window(tag, name, run, queries, kern) -> None:
                   if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)
                   and not e.key.startswith("ProfilerStep")]
-        traced = {n: sum(e.count for e in events if TRACE_NAMES[n] in e.key) for n in kern}
+        traced = {n: sum(e.count for e in events if any(t in e.key for t in TRACE_NAMES[n]))
+                  for n in kern}
         if traced == counted:
             break
         print(f"[{tag}] profile {name}, attempt {attempt}: the trace holds {traced} launches, "
@@ -628,6 +631,17 @@ def same_bits(a, b) -> bool:
 def reset(kern) -> None:
     for fn in kern.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by"):
+            fn.launches_by = dict.fromkeys(fn.launches_by, 0)
+
+
+def k5_variants(kern, route: str, expected: dict) -> dict:
+    """K5's per-variant counters after a route's run: ``expected`` exactly,
+    every other variant never."""
+    got = dict(kern["K5"].launches_by)
+    want = {name: expected.get(name, 0) for name in got}
+    require(got == want, f"{route}: K5 variants {got}, expected {want}")
+    return got
 
 
 def counted(kern, route: str, expected: dict) -> dict:
@@ -655,6 +669,7 @@ def lm_serve(model, cfg, prompts, steps, kern, torch, device):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = {"lm:prefill": counted(kern, "lm:prefill", {"K5": L})}
+    variants = {"lm:prefill": k5_variants(kern, "lm:prefill", {"tc": L})}
     require(bool(torch.isfinite(logits.float()).all()), "prefill logits not finite")
     tok = logits.argmax(-1, keepdim=True)
     step_ms, out = [], [tok]
@@ -670,6 +685,7 @@ def lm_serve(model, cfg, prompts, steps, kern, torch, device):
                 f"{kern['K5'].launches - before} K5 launches, expected {L}")
         out.append(tok)
     launches["lm:decode"] = counted(kern, "lm:decode", {"K5": L * steps})
+    variants["lm:decode"] = k5_variants(kern, "lm:decode", {"split": L * steps})
     gen = torch.cat(out, dim=1)
     require(bool(torch.isfinite(logits.float()).all()) and gen.shape == (B, steps + 1)
             and bool(((gen >= 0) & (gen < cfg.vocab)).all()), "decode output malformed")
@@ -678,12 +694,14 @@ def lm_serve(model, cfg, prompts, steps, kern, torch, device):
     t = np.array(step_ms)
     r = dict(prefill_ms=prefill_ms, p50=float(np.percentile(t, 50)),
              p99=float(np.percentile(t, 99)), tok_s=B * steps / (t.sum() / 1e3),
-             peak=torch.cuda.max_memory_allocated() - base, slots=cache["k"].shape[3])
+             peak=torch.cuda.max_memory_allocated() - base, slots=cache["k"].shape[3],
+             variants=variants)
     print(f"[7] served {B} prompts x {S} tokens: prefill wall {prefill_ms:.1f} ms "
           f"({B * S / prefill_ms * 1e3:.0f} prompt tokens/s); {steps} greedy decode steps "
           f"against a ring of {r['slots']} slots: step wall p50 {r['p50']:.3f} ms p99 "
           f"{r['p99']:.3f} ms, {r['tok_s']:.1f} tokens/s (batch {B}); K5 launches "
-          f"{launches['lm:prefill']['K5']} in the prefill, {L} in each decode step; "
+          f"{launches['lm:prefill']['K5']} in the prefill ({variants['lm:prefill']}), {L} in "
+          f"each decode step ({variants['lm:decode']} over the {steps} steps); "
           f"max_memory_allocated {r['peak']} B above the {base} B held before the prefill (the "
           f"weights and what earlier phases hold)", flush=True)
     return r, launches, cache
@@ -702,13 +720,119 @@ def sdpa_mask(torch, Sq, Skv, device, *, causal=False, window=None, kv_len=None)
     return mask
 
 
-def k5_checks(model, cfg, prompts, cache, k5, ref, torch):
-    """Phase 7c: K5 against its twin, bitwise, on layer 0's real q/k/v at
-    the model's prefill and decode shapes (kv_len = slots and < slots) and
-    one Dv != D case; then the prefill and decode shapes timed beside the
-    twin, ``scaled_dot_product_attention`` (``enable_gqa`` and a boolean
-    mask for the window and kv_len) and the bound."""
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn()`` in ms with the host's launch cost out of
+    the way: ``reps`` calls captured into one CUDA graph, CUDA events around
+    its replay (after a warm-up call and a warm-up replay)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+ORACLE_SCORES = 1 << 22         # f32 scores per (batch, head) the dense oracle may hold
+
+
+def k5_row_tol(torch, want, sdpa):
+    """The bf16 kernels' bound against the twin for each row of the output:
+    ``max(2·max_row|SDPA − twin|, one bf16 ulp of max_row|twin|)``. The ulp
+    lies in (2⁻⁸, 2⁻⁷] of the row's largest value: the output's own bf16
+    rounding can differ by that much where two f32 results straddle a
+    rounding step. Per row, so that the long rows of a prefill, whose values
+    are small, are not held to the bound of its first rows, which see a few
+    keys and carry the largest values."""
+    w = want.float()
+    top = w.abs().amax(-1)
+    ulp = torch.where(top > 0, torch.exp2(torch.frexp(top).exponent.float() - 8), 0.0)
+    return torch.maximum(2 * (sdpa.float() - w).abs().amax(-1), ulp)
+
+
+def k5_rows_within(name, torch, got, want, row_tol, against="twin") -> float:
+    """Require every row of ``got`` within its ``row_tol`` of ``want``;
+    returns the worst row's excess over its bound (<= 0)."""
+    excess = float(((got.float() - want.float()).abs().amax(-1) - row_tol).max())
+    require(excess <= 0, f"K5 ({name}): a row is off the {against} by {excess} more than its "
+                         f"per-row bound")
+    return excess
+
+
+def k5_check(name, k5, ref, torch, a, b, c, kw) -> dict:
+    """One K5 case against the twin: bitwise for f32; for bf16 within
+    ``max(2·max|SDPA − twin|, 2⁻⁸·max|twin|)`` over the whole output and
+    within :func:`k5_row_tol` on every row, SDPA being
+    ``scaled_dot_product_attention`` on the same inputs and mask (a row
+    that sees no key as 0). Then within 2e-2 of the dense oracle on the last
+    query rows whose scores fit ``ORACLE_SCORES``, and, for a causal
+    prefill too long for that, on as many first rows (which see only the
+    first keys)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import variant
+    got, want = k5(a, b, c, **kw), ref.flash_attention_ref(a, b, c, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got.float(), want.float())
+    r = dict(err=err)
+    if a.dtype == torch.float32:
+        require(same_bits(got, want), f"K5 != twin ({name})")
+        held = "bitwise == twin"
+    else:
+        mask = sdpa_mask(torch, a.shape[2], b.shape[2], a.device, **kw)
+        sdpa = torch.nan_to_num(F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                                               enable_gqa=True), nan=0.0)
+        r["sdpa_err"] = max_abs_err(sdpa.float(), want.float())
+        r["tol"] = max(2 * r["sdpa_err"], 2.0 ** -8 * float(want.float().abs().max()))
+        require(err <= r["tol"], f"K5 ({name}) off the twin by {err}, more than {r['tol']}")
+        r["row_tol"] = k5_row_tol(torch, want, sdpa)
+        r["row_excess"] = k5_rows_within(name, torch, got, want, r["row_tol"])
+        held = (f"within {r['tol']:.3e} of the twin (SDPA's distance {r['sdpa_err']:.3e}) and "
+                f"every row within its own bound (worst row {r['row_excess']:.3e} past it; "
+                f"bounds {float(r['row_tol'].min()):.3e} to {float(r['row_tol'].max()):.3e}); "
+                f"variant {variant(a.dtype, a.shape[1] // b.shape[1] * a.shape[2])}")
+        del sdpa, mask
+    Sq, Skv = a.shape[2], b.shape[2]
+    rows = max(1, min(Sq, ORACLE_SCORES // Skv))
+    spans = {"last": (slice(Sq - rows, Sq), slice(None))}
+    if rows < Sq and Sq == Skv and kw.get("causal") and kw.get("kv_len") is None:
+        spans["first"] = (slice(0, rows), slice(0, rows))
+    r["oracle_err"] = 0.0
+    for span, (qs, ks) in spans.items():
+        oracle = ref.mha_attention_ref(a[:, :, qs], b[:, :, ks], c[:, :, ks], **kw).float()
+        part = got[:, :, qs].float()
+        e = max_abs_err(part, oracle)
+        r["oracle_err"] = max(r["oracle_err"], e)
+        require(bool(torch.allclose(part, oracle, rtol=2e-2, atol=2e-2)),
+                f"K5 ({name}) off the dense oracle by {e} on the {span} {rows} query rows")
+        del oracle, part
+    print(f"[7] K5 {name}: q {tuple(a.shape)} k {tuple(b.shape)} v {tuple(c.shape)} "
+          f"{a.dtype} {kw}: {held} (max abs err {err}); max abs err against the dense oracle "
+          f"{r['oracle_err']} on the {' and '.join(spans)} {rows} query rows", flush=True)
+    return r
+
+
+def k5_checks(model, cfg, prompts, cache, k5, ref, torch):
+    """Phase 7c: K5 against its twin on layer 0's real q/k/v at the model's
+    prefill and decode shapes (kv_len = slots and < slots) and one Dv != D
+    case (:func:`k5_check`); the decode shape also against the plain
+    split-KV version; then the prefill and decode shapes timed beside the
+    twin, ``scaled_dot_product_attention`` (``enable_gqa`` and a boolean
+    mask for the window and kv_len) and the bound: CUDA events around
+    back-to-back calls, and around a CUDA graph of the same calls (the
+    device's time without the host's launch cost), kernel and SDPA in
+    turns (kernel, SDPA, SDPA, kernel)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import split_plan
     from repro_torch.models.common import rms_norm
     from repro_torch.models.transformer import _qkv
     S = prompts.shape[1]
@@ -728,42 +852,46 @@ def k5_checks(model, cfg, prompts, cache, k5, ref, torch):
         "Dv!=D": (q[:, :, :n].contiguous(), k[:, :, :n].contiguous(),
                   v[:, :, :n, :64].contiguous(), dict(causal=True, window=cfg.window)),
     }
-    out = {}
-    for name, (a, b, c, kw) in cases.items():
-        got, want = k5(a, b, c, **kw), ref.flash_attention_ref(a, b, c, **kw)
-        torch.cuda.synchronize()
-        require(same_bits(got, want), f"K5 != twin ({name})")
-        err = max_abs_err(got.float(), want.float())
-        oracle = None
-        if a.shape[2] * b.shape[2] <= 1 << 22:            # the dense oracle's scores fit
-            oracle = max_abs_err(got.float(), ref.mha_attention_ref(a, b, c, **kw).float())
-        out[name] = dict(err=err, oracle_err=oracle)
-        print(f"[7] K5 {name}: q {tuple(a.shape)} k {tuple(b.shape)} v {tuple(c.shape)} "
-              f"{a.dtype} {kw}: bitwise == twin (max abs err {err}); max abs err against "
-              f"the dense oracle {oracle}", flush=True)
+    out = {name: k5_check(name, k5, ref, torch, *case) for name, case in cases.items()}
+    a, b, c, kw = cases["decode"]
+    k_begin, split, n_split = split_plan(b.shape[0] * b.shape[1], a.shape[2], b.shape[2],
+                                         window=None, kv_end=kw["kv_len"])
+    got = k5(a, b, c, **kw)
+    plain = ref.flash_attention_split_ref(a, b, c, k_begin=k_begin, split=split, **kw)
+    out["decode"]["split_ref_err"] = max_abs_err(got.float(), plain.float())
+    excess = k5_rows_within("decode", torch, got, plain, out["decode"]["row_tol"],
+                            against="plain split-KV version")
+    print(f"[7] K5 decode ({n_split} splits of {split} keys a (batch, kv head)) against the "
+          f"plain split-KV version (f32): max abs err {out['decode']['split_ref_err']}, every "
+          f"row within its bound against the twin (worst row {excess:.3e} past it)",
+          flush=True)
+    for r in out.values():
+        r.pop("row_tol", None)
     for name in ("prefill", "decode"):
         a, b, c, kw = cases[name]
         mask = sdpa_mask(torch, a.shape[2], b.shape[2], a.device, **kw)
         sdpa = lambda: F.scaled_dot_product_attention(a, b, c, attn_mask=mask,  # noqa: E731
                                                       enable_gqa=True)
+        kernel = lambda: k5(a, b, c, **kw)                                     # noqa: E731
         reps = 5 if name == "prefill" else 50
         r = out[name]
-        r["ms"] = cuda_ms(lambda: k5(a, b, c, **kw), reps=reps)
+        timed = {"ms": [], "library_ms": [], "graph_ms": [], "library_graph_ms": []}
+        for key, fn in (("", kernel), ("library_", sdpa), ("library_", sdpa), ("", kernel)):
+            timed[f"{key}ms"].append(cuda_ms(fn, reps=reps))
+            timed[f"{key}graph_ms"].append(graph_ms(fn, reps=reps))
+        r.update({key: float(np.mean(t)) for key, t in timed.items()})
         r["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(a, b, c, **kw), reps=1,
                                 warmup=1)
-        try:
-            r["library_err"] = max_abs_err(sdpa().float(), k5(a, b, c, **kw).float())
-            r["library_ms"] = cuda_ms(sdpa, reps=reps)
-        except torch.cuda.OutOfMemoryError as e:
-            r["library_ms"], r["library_err"] = None, f"out of memory: {e}"
-            torch.cuda.empty_cache()
         r["bound"] = k5_bound(a, b, c, **kw)
         r["shape"] = (f"q {tuple(a.shape)}, k/v {tuple(b.shape)}, {a.dtype}, "
                       f"{', '.join(f'{key}={val}' for key, val in kw.items())}")
-        print(f"[7] K5 {name} timing: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.1f} ms, "
-              f"scaled_dot_product_attention {r['library_ms']} ms (answer within "
-              f"{r['library_err']} of K5's), bound {r['bound'][0]:.4f} ms ({r['bound'][1]})",
-              flush=True)
+        print(f"[7] K5 {name} timing: kernel {r['ms']:.4f} ms ({timed['ms']}), in a CUDA graph "
+              f"{r['graph_ms']:.4f} ms ({timed['graph_ms']}); scaled_dot_product_attention "
+              f"{r['library_ms']:.4f} ms ({timed['library_ms']}), in a CUDA graph "
+              f"{r['library_graph_ms']:.4f} ms ({timed['library_graph_ms']}); twin "
+              f"{r['plain_ms']:.1f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}): the "
+              f"kernel at {r['bound'][0] / r['ms'] * 100:.1f} % of it "
+              f"({r['bound'][0] / r['graph_ms'] * 100:.1f} % in the graph)", flush=True)
     return out
 
 
@@ -846,20 +974,24 @@ def lm_phase(kern, ref, torch, arch_name=LM_ARCH, serve=LM_SERVE, check=LM_CHECK
 
 def k5_line(serve, k5, launches) -> dict:
     """K5's entry in the kernels line: launches on the serving route
-    (prefill + decode steps), times at the prefill shape, the decode
-    shape's beside them."""
+    (prefill + decode steps), times at the prefill shape (the tensor-core
+    kernel), the decode shape's (split-KV) beside them."""
     pre, dec = k5["prefill"], k5["decode"]
-    keys = ("ms", "plain_ms", "library_ms", "shape")
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "shape")
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
         "replaces": "src/repro/kernels/flash_attention.py:128",
         "launches": launches["lm:prefill"]["K5"] + launches["lm:decode"]["K5"],
         "launches_on": "lm:prefill + lm:decode",
         "launches_by_route": {route: c["K5"] for route, c in launches.items()},
-        "max_abs_err": max(r["err"] for r in k5.values()), "ms": pre["ms"],
-        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound"][0], "bound_by": pre["bound"][1],
-        "library_ms": pre["library_ms"], "shape": pre["shape"],
+        "launches_by_variant": serve["variants"],
+        "max_abs_err": max(r["err"] for r in k5.values()),
+        "tolerance": {name: r.get("tol", 0.0) for name, r in k5.items()},
+        "ms": pre["ms"], "graph_ms": pre["graph_ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound"][0], "bound_by": pre["bound"][1],
+        "library_ms": pre["library_ms"], "library_graph_ms": pre["library_graph_ms"],
+        "shape": pre["shape"],
         "decode": {**{key: dec[key] for key in keys}, "bound_ms": dec["bound"][0],
                    "bound_by": dec["bound"][1]},
         "serve": {key: serve[key] for key in ("prefill_ms", "p50", "p99", "tok_s", "peak")},
@@ -870,10 +1002,14 @@ def k5_line(serve, k5, launches) -> dict:
 
 RECSYS_ARCHS = ("fm", "dcn-v2", "bst", "bert4rec")
 RECSYS_SHAPES = dict(serve_p99=512, serve_bulk=262_144, cands=1_000_000, k=100)
-# bst at serve_bulk would give K5 262,144 × 8 = 2,097,152 (batch · kv head)
-# blocks, past its grid's 65,535; bert4rec's bulk shares the limit
-BULK_ARCHS = ("fm", "dcn-v2")
+# every architecture at serve_bulk: bst gives K5 262,144 × 8 = 2,097,152
+# (batch · kv head) blocks on its flat grid; bert4rec_serve_topk encodes
+# 2,048 sequences at a time (128 chunks, each 2 K5 launches and a top-100
+# over 2²⁰ items on K2), ~15 s a call, so it takes 1 rep and a profiler
+# window of 1 call
+BULK_ARCHS = ("fm", "dcn-v2", "bst", "bert4rec")
 RECSYS_REPS = dict(serve_p99=30, serve_bulk=3, retrieval=5)
+BULK_REPS = {"bert4rec": 1}
 ORACLE_ROWS = 64
 ORACLE_RTOL = 1e-5             # of the logit's summed magnitudes (FM's pair term cancels)
 RETRIEVAL_TOL = 1e-6           # of Σ_d |u_d·c_d|: two f32 orders of one dot
@@ -1091,15 +1227,16 @@ def recsys_arch(name, kern, ref, torch, device, seed):
     sizes = {"serve_p99": (p99, RECSYS_REPS["serve_p99"])}
     if name in BULK_ARCHS:
         sizes["serve_bulk"] = (recsys_batch(cfg, RECSYS_SHAPES["serve_bulk"], seed=seed),
-                               RECSYS_REPS["serve_bulk"])
+                               BULK_REPS.get(name, RECSYS_REPS["serve_bulk"]))
     print(f"[8] {name}: batches from the synthetic streams in {time.perf_counter() - t0:.1f} s",
           flush=True)
     answers = {}
     for shape, (batch, reps) in sizes.items():
         route = f"recsys:{name}:{shape}"
-        ms, launches[route] = timed_route(kern, route, lambda: answers.__setitem__(
-            shape, serve(batch)), reps, per_forward, torch)
         B = len(next(iter(batch.values())))
+        chunks = -(-B // tr.BERT4REC_CHUNK) if b4r else 1
+        ms, launches[route] = timed_route(kern, route, lambda: answers.__setitem__(
+            shape, serve(batch)), reps, {n: c * chunks for n, c in per_forward.items()}, torch)
         got = answers[shape]
         if b4r:
             vals, ids = got
@@ -1115,9 +1252,9 @@ def recsys_arch(name, kern, ref, torch, device, seed):
               f"p99 {out[shape]['p99']:.3f} ms ({out[shape]['rows_s']:.0f} rows/s at p50); "
               f"launches {launches[route]}", flush=True)
 
-    for shape, (batch, _) in sizes.items():
-        profile_window("8", f"{name} {shape}", lambda _: serve(batch), range(6 if shape ==
-                       "serve_p99" else 3), kern)
+    for shape, (batch, reps) in sizes.items():
+        profile_window("8", f"{name} {shape}", lambda _: serve(batch),
+                       range(6 if shape == "serve_p99" else min(3, reps + 1)), kern)
 
     # K6 against its twin on this architecture's real tables and ids
     from repro_torch.models.recsys import _flat_ids

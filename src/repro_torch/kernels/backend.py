@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bm25_block", "topk", "bm25_pruned", "dot_topk", "flash_attention",
-           "embedding_bag")
+           "flash_attention_bf16", "embedding_bag")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # IEEE division (nvcc's default -prec-div=true) and no FMA contraction: each
 # arithmetic step rounds once, as the eager twins' ops do.
@@ -54,7 +54,11 @@ SIGNATURES = {
         "dot_topk_chunks_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P]),
     },
     "flash_attention": {
-        "flash_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
+        "flash_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
+    },
+    "flash_attention_bf16": {
+        "flash_attention_tc_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
+        "flash_attention_split_launch": (_I, [_P] * 6 + [_I] * 12 + [_F, _P]),
     },
     "embedding_bag": {
         "embedding_bag_launch": (_I, [_P] * 4 + [_LL, _I, _I, _I, _P]),

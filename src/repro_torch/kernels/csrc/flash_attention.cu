@@ -1,7 +1,8 @@
-// K5 — FlashAttention forward: causal / GQA / sliding window / kv_len.
+// K5 — FlashAttention forward on f32: causal / GQA / sliding window / kv_len.
 //
 // Replaces: src/repro/kernels/flash_attention.py::_flash_kernel (the
-// pallas_call in flash_attention, flash_attention.py:128).
+// pallas_call in flash_attention, flash_attention.py:128), for f32 inputs;
+// bf16 inputs take csrc/flash_attention_bf16.cu (tensor cores, split-KV).
 //
 // Computes, per (batch, kv head) and per query row r of the G = Hq / Hkv
 // query heads folded into rows (r = g * Sq + s):
@@ -22,20 +23,18 @@
 // Tiles that are wholly masked for every row of a block are skipped: such a
 // tile leaves m, l and acc unchanged bit for bit (a = exp(0) = 1, p = 0).
 //
-// Bound on an H100: operations at prefill (4 * D flops per visible pair,
-// ~0.7 TFLOP a layer of h2o-danube at 4 x 6144 tokens, against 989 TFLOP/s
-// bf16 on the tensor cores), bytes at decode (the (B, Hkv, 4096, D) ring is
-// read once per step). This first kernel uses neither: products and sums run
-// on the CUDA cores in f32, unfused to keep the twin's bits.
+// Bound on an H100: operations at long sequences (4 * D flops per visible
+// pair against 67 TFLOP/s f32 on the CUDA cores), bytes at decode. Products
+// and sums run on the CUDA cores in f32, unfused to keep the twin's bits.
 //
-// Design: one block of 256 threads per (batch * kv head, tile of BQ rows).
+// Design: one block of 256 threads per (batch * kv head, tile of BQ rows),
+// on one flat grid.x (bh * row tiles + tile: no 65,535 limit on bh).
 // The Q tile (f32), then each K and V tile of 64 keys, are staged in shared
 // memory; a thread holds an RM x CN patch of the BQ x 64 scores in registers
 // and, for the p . V product, up to DVMAX / (256 / BQ) output columns of one
 // row. BQ is 64 for prefill and 4 or 16 for decode, where the rows are only
 // the G folded heads. The TPU kernel walked a sequential kv grid axis with
 // m, l, acc in VMEM scratch; here the kv loop runs inside the block.
-#include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -45,16 +44,12 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int BK = 64;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-template <typename T, int BQ, int RM, int DVMAX>
+template <int BQ, int RM, int DVMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int rows, int q_seq, int kv_seq, int D, int Dv, int causal,
-                 int window, int kv_len, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int n_tiles, int rows,
+                 int q_seq, int kv_seq, int D, int Dv, int causal, int window, int kv_len,
+                 float scale) {
   constexpr int TR = BQ / RM;         // thread rows of the score patch grid
   constexpr int TC = THREADS / TR;    // thread columns
   constexpr int CN = BK / TC;         // score columns a thread holds
@@ -74,17 +69,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* ms_s = a_s + BQ;                   // BQ this tile's m' (0 if -inf)
 
   const int tid = threadIdx.x;
-  const long long bh = blockIdx.y;
-  const int r0 = blockIdx.x * BQ;
+  const long long bh = blockIdx.x / n_tiles;
+  const int r0 = (int)(blockIdx.x - bh * n_tiles) * BQ;
   const int n_rows = min(BQ, rows - r0);
   const int off = kv_seq - q_seq;
-  const T* qb = q + (bh * rows + r0) * (long long)D;
-  const T* kb = k + bh * kv_seq * (long long)D;
-  const T* vb = v + bh * kv_seq * (long long)Dv;
+  const float* qb = q + (bh * rows + r0) * (long long)D;
+  const float* kb = k + bh * kv_seq * (long long)D;
+  const float* vb = v + bh * kv_seq * (long long)Dv;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i - r * D;
-    qs[r * DP + d] = r < n_rows ? load_f32(qb + (long long)r * D + d) : 0.0f;
+    qs[r * DP + d] = r < n_rows ? qb[(long long)r * D + d] : 0.0f;
   }
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
@@ -112,11 +107,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();   // the previous tile's readers are done with ks, vs, ps
     for (int i = tid; i < BK * D; i += THREADS) {
       const int j = i / D, d = i - j * D;
-      ks[j * DP + d] = k0 + j < kv_seq ? load_f32(kb + (long long)(k0 + j) * D + d) : 0.0f;
+      ks[j * DP + d] = k0 + j < kv_seq ? kb[(long long)(k0 + j) * D + d] : 0.0f;
     }
     for (int i = tid; i < BK * Dv; i += THREADS) {
       const int j = i / Dv;
-      vs[i] = k0 + j < kv_seq ? load_f32(vb + (long long)k0 * Dv + i) : 0.0f;
+      vs[i] = k0 + j < kv_seq ? vb[(long long)k0 * Dv + i] : 0.0f;
     }
     __syncthreads();
 
@@ -197,65 +192,60 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (pr < n_rows) {
     const float l = l_s[pr];
-    T* orow = o + (bh * rows + r0 + pr) * (long long)Dv;
+    float* orow = o + (bh * rows + r0 + pr) * (long long)Dv;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int c = pl + TPR * i;
-      if (c < Dv) store_f32(orow + c, l > 0.0f ? __fdiv_rn(acc[i], l) : 0.0f);
+      if (c < Dv) orow[c] = l > 0.0f ? __fdiv_rn(acc[i], l) : 0.0f;
     }
   }
 }
 
-template <typename T, int BQ, int RM, int DVMAX>
+template <int BQ, int RM, int DVMAX>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int rows, int q_seq,
            int kv_seq, int D, int Dv, int causal, int window, int kv_len, float scale,
            cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, BQ, RM, DVMAX>;
+  auto kernel = flash_fwd_kernel<BQ, RM, DVMAX>;
   const size_t smem =
       sizeof(float) * ((size_t)(BQ + BK) * (D + 1) + (size_t)BK * Dv + BQ * (BK + 1) + 4 * BQ);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((rows + BQ - 1) / BQ, bh);
-  kernel<<<grid, THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, rows,
-                                          q_seq, kv_seq, D, Dv, causal, window, kv_len, scale);
+  const int n_tiles = (rows + BQ - 1) / BQ;
+  kernel<<<(unsigned)((long long)bh * n_tiles), THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, n_tiles, rows, q_seq,
+      kv_seq, D, Dv, causal, window, kv_len, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DVMAX>
+template <int DVMAX>
 int launch_rows(const void* q, const void* k, const void* v, void* o, int bh, int rows,
                 int q_seq, int kv_seq, int D, int Dv, int causal, int window, int kv_len,
                 float scale, cudaStream_t stream) {
   if (rows <= 4)
-    return launch<T, 4, 1, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
-                                  kv_len, scale, stream);
+    return launch<4, 1, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
+                               kv_len, scale, stream);
   if (rows <= 16)
-    return launch<T, 16, 1, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
-                                   kv_len, scale, stream);
-  return launch<T, 64, 4, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
-                                 kv_len, scale, stream);
+    return launch<16, 1, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
+                                kv_len, scale, stream);
+  return launch<64, 4, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
+                              kv_len, scale, stream);
 }
 
 }  // namespace
 
 // q (bh, rows, D), k (bh, kv_seq, D), v (bh, kv_seq, Dv), o (bh, rows, Dv), all
-// contiguous, f32 (bf16 = 0) or bf16 (bf16 = 1); rows = G * q_seq. window <= 0:
-// no window. kv_len: valid keys (kv_seq when the caller gave none). D, Dv <= 256.
+// contiguous f32; rows = G * q_seq. window <= 0: no window. kv_len: valid keys
+// (kv_seq when the caller gave none). D, Dv <= 256; bh * row tiles < 2^31.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                         int bh, int rows, int q_seq, int kv_seq, int D, int Dv,
                                         int causal, int window, int kv_len, float scale,
-                                        int bf16, void* stream) {
+                                        void* stream) {
   if (bh <= 0 || rows <= 0) return 0;
-  if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 256 || Dv < 1 || Dv > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    return Dv <= 128 ? launch_rows<__nv_bfloat16, 128>(q, k, v, o, bh, rows, q_seq, kv_seq, D,
-                                                       Dv, causal, window, kv_len, scale, s)
-                     : launch_rows<__nv_bfloat16, 256>(q, k, v, o, bh, rows, q_seq, kv_seq, D,
-                                                       Dv, causal, window, kv_len, scale, s);
-  }
-  return Dv <= 128 ? launch_rows<float, 128>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal,
-                                             window, kv_len, scale, s)
-                   : launch_rows<float, 256>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal,
-                                             window, kv_len, scale, s);
+  return Dv <= 128 ? launch_rows<128>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal,
+                                      window, kv_len, scale, s)
+                   : launch_rows<256>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal,
+                                      window, kv_len, scale, s);
 }

@@ -20,7 +20,8 @@
 // at 3.35 TB/s. This simple version is bound by its k block-wide reductions
 // instead: each round is a shared-memory pass plus two barriers.
 //
-// Design: one block of 512 threads per (chunk, query). The chunk is staged
+// Design: one block of 512 threads per (chunk, query), on one flat grid.x
+// (query * n_chunks + chunk: no 65,535 limit on Q). The chunk is staged
 // into dynamic shared memory once (16,384 f32 = 64 KB by default, which needs
 // the opt-in above 48 KB), then each round is a strided scan, a warp-shuffle
 // reduction of (value, index) pairs and a cross-warp reduction.
@@ -57,8 +58,8 @@ __global__ void topk_rounds_kernel(const float* __restrict__ scores,
   extern __shared__ float s[];
   __shared__ float warp_v[TOPK_THREADS / 32];
   __shared__ int warp_i[TOPK_THREADS / 32];
-  const int c = blockIdx.x;
-  const long long q = blockIdx.y;
+  const long long q = blockIdx.x / n_chunks;          // the chunks of a row side by side
+  const int c = (int)(blockIdx.x - q * n_chunks);
   const long long base = (long long)c * chunk;
   const float* row = scores + q * row_stride;
   for (int j = threadIdx.x; j < chunk; j += blockDim.x) {
@@ -117,8 +118,8 @@ REPRO_EXPORT int topk_rounds_launch(const void* scores, const void* ids_in,
         topk_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(n_chunks, Q);
-  topk_rounds_kernel<<<grid, TOPK_THREADS, smem, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((long long)n_chunks * Q);
+  topk_rounds_kernel<<<blocks, TOPK_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)scores, (const int*)ids_in, row_stride, n, chunk, k, n_live, n_chunks,
       (float*)out_vals, (int*)out_ids);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-"""K5: FlashAttention forward — wrapper of ``csrc/flash_attention.cu``, the
-port of ``repro/kernels/flash_attention.py``.
+"""K5: FlashAttention forward — wrapper of ``csrc/flash_attention.cu`` (f32)
+and ``csrc/flash_attention_bf16.cu`` (bf16), the port of
+``repro/kernels/flash_attention.py``.
 
     q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,Dv) → (B,Hq,Sq,Dv)
 
@@ -9,19 +10,64 @@ masking, queries at the end of the kv axis; f32 running max, denominator
 and accumulator; bf16 or f32 in, q's dtype out. Dv may differ from D. A
 row that sees no key is 0.
 
+Three hand kernels; :func:`variant` picks one from the dtype and the
+folded rows G·Sq:
+
+* ``"simt"`` — f32, any shape: the CUDA cores, every sum in the twin's
+  order, so it equals :func:`ref.flash_attention_ref` bit for bit;
+* ``"tc"`` — bf16 with more than ``DECODE_ROWS`` folded rows (prefill):
+  ``mma.sync`` on the tensor cores, K/V tiles by ``cp.async``;
+* ``"split"`` — bf16 with at most ``DECODE_ROWS`` folded rows (decode):
+  the kv axis in splits of :func:`split_plan`'s keys, one block each that
+  streams its split a 128-key tile at a time through ``mma.sync``, then a
+  second launch merges the splits' (m, l, acc) in split order.
+
+The bf16 kernels sum in other orders than the twin and round P to bf16, so
+they are held to a tolerance; :func:`ref.flash_attention_split_ref` is the
+split-KV algorithm in plain PyTorch.
+
 ``kv_len`` is a host ``int``, as it is static in the Pallas kernel: decode
 passes ``min(pos + 1, slots)`` without reading anything back from the card.
-Tile sizes are the kernel's own (64 keys; 4, 16 or 64 rows a block);
-``block_q``/``block_k`` are the reference's knobs and are not taken.
+Tile sizes are the kernels' own; ``block_q``/``block_k`` are the
+reference's knobs and are not taken.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import backend, ref
 
-MAX_HEAD_DIM = 256      # shared memory holds the Q tile, a K and a V tile in f32
+MAX_HEAD_DIM = 256      # the kernels stage K and V rows of at most 256 in shared memory
+DECODE_ROWS = 16        # folded rows a split-KV block serves
+SPLIT_TILE = 128        # keys a split-KV block stages at a time
+SPLIT_BLOCKS = 264      # split-KV blocks that fill an H100 once: two on each of 132 SMs
+VARIANTS = ("tc", "split", "simt")
+
+
+def variant(dtype: torch.dtype, rows: int) -> str:
+    """The kernel a call takes, from q's dtype and its folded rows G·Sq."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "split" if rows <= DECODE_ROWS else "tc"
+    raise ValueError(f"flash_attention takes f32 or bf16, got {dtype}")
+
+
+def split_plan(bh: int, Sq: int, Skv: int, *, window: "int | None",
+               kv_end: int) -> tuple[int, int, int]:
+    """(first key, keys a split, splits) of a split-KV call: the keys some
+    row may see, [k_lo, kv_end) (the last row sits at Skv − 1, so only the
+    window cuts the front), cut into splits of whole ``SPLIT_TILE`` tiles,
+    as few tiles a split as keep the ``bh`` heads' splits within one wave
+    of ``SPLIT_BLOCKS`` blocks (4 tiles, 512 keys, for the LM's 32 heads
+    over 4,096 slots); no split when nothing is visible."""
+    k_lo = max(0, Skv - Sq - window + 1) if window is not None else 0
+    tiles = max(0, -(-(kv_end - k_lo) // SPLIT_TILE))
+    per = max(1, -(-(tiles * bh) // SPLIT_BLOCKS))
+    return k_lo, SPLIT_TILE * per, -(-tiles // per)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -46,21 +92,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes f32 or bf16 alike, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM or B * Hkv > 65535:
-        raise ValueError(f"D={D}, Dv={Dv} (at most {MAX_HEAD_DIM}), B·Hkv={B * Hkv}")
+    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        raise ValueError(f"D={D}, Dv={Dv}: at most {MAX_HEAD_DIM}")
     G = Hq // Hkv
+    BH, rows = B * Hkv, G * Sq
+    kind = variant(q.dtype, rows)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty(B, Hq, Sq, Dv, dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else float(D) ** -0.5
-    lib = backend.library("flash_attention")
+    kv_end = Skv if kv_len is None else max(0, min(kv_len, Skv))
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * Hkv, G * Sq, Sq,
-            Skv, D, Dv, int(causal), window or 0, Skv if kv_len is None else min(kv_len, Skv),
-            backend.f32(scale), int(q.dtype == torch.bfloat16), backend.stream(q))
-    backend.check(lib, err, "flash_attention_launch")
+        if kind == "simt":
+            lib = backend.library("flash_attention")
+            err = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, rows, Sq, Skv,
+                D, Dv, int(causal), window or 0, kv_end, backend.f32(scale), backend.stream(q))
+            name = "flash_attention_launch"
+        elif kind == "tc":
+            lib = backend.library("flash_attention_bf16")
+            err = lib.flash_attention_tc_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, rows, Sq, Skv,
+                D, Dv, int(causal), window or 0, kv_end,
+                backend.f32(backend.f32(scale) * math.log2(math.e)), backend.stream(q))
+            name = "flash_attention_tc_launch"
+        else:
+            k_begin, split, n_split = split_plan(BH, Sq, Skv, window=window, kv_end=kv_end)
+            # the splits' partials: acc (BH, n_split, rows, Dv), then (m, l) per row
+            n_part = BH * n_split * rows
+            part = torch.empty(max(1, n_part * (Dv + 2)), dtype=torch.float32, device=q.device)
+            lib = backend.library("flash_attention_bf16")
+            err = lib.flash_attention_split_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
+                part.data_ptr() + 4 * n_part * Dv, BH, n_split, split, rows, Sq, Skv, D, Dv,
+                int(causal),
+                window or 0, k_begin, kv_end,
+                backend.f32(backend.f32(scale) * math.log2(math.e)), backend.stream(q))
+            name = "flash_attention_split_launch"
+    backend.check(lib, err, name)
     flash_attention.launches += 1
+    flash_attention.launches_by[kind] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by = dict.fromkeys(VARIANTS, 0)

@@ -277,6 +277,53 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
 
 
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = False, window: "int | None" = None,
+                              kv_len: "int | None" = None, sm_scale: "float | None" = None,
+                              k_begin: int, split: int) -> torch.Tensor:
+    """Split-KV attention — the algorithm of K5's bf16 decode kernel — in
+    plain f32 PyTorch, for the tests and the smoke only. The keys
+    [k_begin, kv_len), ``k_begin`` from the kernel's own plan
+    (``flash_attention.split_plan``), are cut into splits of ``split`` keys;
+    each split gives each row a partial (m, l, acc) from its own max,
+    m = −inf where the row sees none of the split's keys; then the splits
+    merge in split order by the log-sum-exp rule, M = max m_s,
+    l = Σ e^(m_s − M)·l_s, acc = Σ e^(m_s − M)·acc_s, out = acc / l, and 0
+    where l = 0."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    BH, rows, dev = B * Hkv, Hq // Hkv * Sq, q.device
+    scale = sm_scale if sm_scale is not None else float(D) ** -0.5
+    kv_end = Skv if kv_len is None else max(0, min(int(kv_len), Skv))
+    qf = q.reshape(BH, rows, D).float()
+    kf = k.reshape(BH, Skv, D).float()
+    vf = v.reshape(BH, Skv, Dv).float()
+    qpos = torch.arange(rows, device=dev) % Sq + (Skv - Sq)
+    l = torch.zeros(BH, rows, device=dev)
+    acc = torch.zeros(BH, rows, Dv, device=dev)
+    parts = []
+    for s0 in range(k_begin, kv_end, split):
+        s1 = min(s0 + split, kv_end)
+        mask = attention_mask(qpos, torch.arange(s0, s1, device=dev), causal=causal,
+                              window=window, kv_len=kv_end)
+        s = torch.einsum("brd,bkd->brk", qf, kf[:, s0:s1]) * scale
+        s = torch.where(mask, s, float("-inf"))
+        m = s.amax(dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1), torch.einsum("brk,bkd->brd", p, vf[:, s0:s1])))
+    if parts:
+        M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        M_safe = torch.where(torch.isfinite(M), M, 0.0)
+        for m, ls, accs in parts:                        # split order
+            w = torch.exp(m - M_safe)                    # 0 for a split the row never saw
+            l = l + w * ls
+            acc = acc + w[..., None] * accs
+    out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
 def mha_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = False, window: "int | None" = None,
                       sm_scale: "float | None" = None,

@@ -50,8 +50,6 @@ def topk(scores: torch.Tensor, k: int, *, chunk: int = DEFAULT_CHUNK):
     if s.stride(1) != 1 and s.shape[1] > 1:
         s = s.contiguous()
     Q, N = s.shape
-    if Q > 65535:
-        raise ValueError(f"topk launches one grid row per query: Q={Q} > 65535")
     chunk = max(chunk, k)          # a chunk must hold at least k survivors
     merge_chunk = max(chunk, 2 * k)
     if merge_chunk > MAX_CHUNK:

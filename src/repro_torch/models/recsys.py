@@ -259,10 +259,12 @@ def recsys_forward(params, batch, cfg: RecsysConfig, *, device=None):
 
 _bert4rec_hidden = _encode                                    # the reference's name
 
+BERT4REC_CHUNK = 2048          # sequences bert4rec_serve_topk encodes and ranks at a time
+
 
 @torch.inference_mode()
-def bert4rec_serve_topk(params, seq, cfg: RecsysConfig, *, k: int = 100, chunk: int = 2048,
-                        device=None):
+def bert4rec_serve_topk(params, seq, cfg: RecsysConfig, *, k: int = 100,
+                        chunk: int = BERT4REC_CHUNK, device=None):
     """Next-item top-k over the full vocab, ``chunk`` sequences at a time so
     that the (chunk, V) score tile stays bounded; the batch is padded with
     [PAD] to a multiple of ``chunk``, as the reference's scan needs. Returns

@@ -18,7 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_attention as j_chunked
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (DECODE_ROWS, flash_attention, split_plan,
+                                                 variant)
 from repro_torch.models.attention import attention, chunked_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -123,3 +124,97 @@ def test_attention_dispatch():
     assert flash_attention.launches == before          # twins launch nothing
     with pytest.raises(ValueError):
         attention(q, k, v, impl="pallas")
+
+
+def _k_begin(shape, kw):
+    """The first key that K5's split plan streams for this case."""
+    B, _, Hkv, Sq, Skv = shape[:5]
+    return split_plan(B * Hkv, Sq, Skv, window=kw.get("window"),
+                      kv_end=min(kw.get("kv_len", Skv), Skv))[0]
+
+
+def _masked_splits(shape, kw, split):
+    """(row, split) pairs of batch 0, kv head 0 in which the row sees no key."""
+    B, Hq, Hkv, Sq, Skv = shape[:5]
+    kv_end = min(kw.get("kv_len", Skv), Skv)
+    k_begin = _k_begin(shape, kw)
+    qpos = torch.arange(Hq // Hkv * Sq) % Sq + (Skv - Sq)
+    return sum(int((~tref.attention_mask(qpos, torch.arange(s0, min(s0 + split, kv_end)),
+                                         causal=kw.get("causal", False),
+                                         window=kw.get("window"), kv_len=kv_end)
+                    .any(dim=1)).sum())
+               for s0 in range(k_begin, kv_end, split))
+
+
+# K5's split-KV decode algorithm in plain PyTorch: (shape, masks, split).
+# Decode on a ring with kv_len < slots (G 4, the LM's heads); a window that
+# starts the splits past key 0; causal rows at several positions with small
+# splits, so that some (row, split) pairs see nothing (m = -inf); a row that
+# sees no key at all; Dv != D.
+SPLIT_CASES = [
+    ((2, 8, 2, 1, 300, 80), dict(kv_len=77), 128),
+    ((2, 32, 8, 1, 512, 80), dict(kv_len=400), 128),
+    ((1, 4, 2, 1, 300, 32), dict(window=100), 32),
+    ((1, 2, 1, 8, 200, 16), dict(causal=True, window=20), 4),
+    ((1, 4, 2, 1, 64, 16), dict(kv_len=0), 128),
+    ((2, 4, 4, 4, 96, 48, 32), dict(causal=True, kv_len=90), 32),
+]
+
+
+@pytest.mark.parametrize("shape,kw,split", SPLIT_CASES)
+def test_split_ref_matches_twin_and_pallas(shape, kw, split):
+    """Split-KV's partials and their log-sum-exp merge give the twin's
+    softmax to rtol 1e-5 (atol 1e-6: an f32 softmax summed in another order)
+    and the Pallas kernel's to the cross-package tolerance."""
+    arrays = _qkv(sum(shape) + split, *shape)
+    k_begin = _k_begin(shape, kw)
+    got, pallas = _both(lambda *a, **k: tref.flash_attention_split_ref(
+                            *a, k_begin=k_begin, split=split, **k),
+                        lambda *a, **k: jops.flash_attention(*a, interpret=True, **k),
+                        arrays, **kw)
+    twin = tref.flash_attention_ref(*(torch.from_numpy(a) for a in arrays), **kw).numpy()
+    np.testing.assert_allclose(got, twin, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, pallas, **TOL)
+    if kw.get("kv_len") == 0:
+        assert not got.any()
+    if kw.get("causal") and "window" in kw:
+        assert _masked_splits(shape, kw, split) > 0
+
+
+def test_variant_dispatch():
+    """f32 takes the bit-exact CUDA-core kernel at any shape; bf16 takes
+    split-KV up to DECODE_ROWS folded rows (G·Sq) and the tensor cores past
+    it; other dtypes are refused. The LM's decode (G 4 · Sq 1) and prefill
+    (G 4 · 6144) and the recsys encoders (f32) land where PERF.md says."""
+    assert variant(torch.float32, 1) == variant(torch.float32, 4 * 6144) == "simt"
+    assert variant(torch.float32, 21) == variant(torch.float32, 200) == "simt"
+    assert variant(torch.bfloat16, 4 * 1) == "split"
+    assert variant(torch.bfloat16, DECODE_ROWS) == "split"
+    assert variant(torch.bfloat16, DECODE_ROWS + 1) == "tc"
+    assert variant(torch.bfloat16, 4 * 6144) == "tc"
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        variant(torch.float16, 4)
+
+
+def test_split_plan():
+    """The keys split-KV streams start at the first key a row's window
+    admits and end at kv_len; a split is whole 128-key tiles, as few as
+    keep all heads' splits within 264 blocks (two a SM): 512 keys for the
+    LM's 32 heads over 4,096 slots, one tile for 8 heads; one split of a
+    4-key axis at 70,000 heads; none when kv_len is 0."""
+    assert split_plan(1, 1, 4096, window=None, kv_end=3000) == (0, 128, 24)
+    assert split_plan(1, 1, 300, window=100, kv_end=300) == (200, 128, 1)
+    assert split_plan(32, 1, 4096, window=None, kv_end=4096) == (0, 512, 8)
+    assert split_plan(32, 1, 4096, window=None, kv_end=3000) == (0, 384, 8)
+    assert split_plan(8, 1, 4096, window=None, kv_end=4096) == (0, 128, 32)
+    assert split_plan(4, 1, 8192, window=4096, kv_end=8192) == (4096, 128, 32)
+    assert split_plan(70_000, 4, 4, window=None, kv_end=4) == (0, 128 * 266, 1)
+    assert split_plan(32, 1, 64, window=None, kv_end=0)[2] == 0
+
+
+def test_cpu_call_counts_no_variant():
+    """On a CPU tensor the wrapper answers with the twin and counts nothing."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(8, 1, 4, 2, 1, 64, 16))
+    before, by = flash_attention.launches, dict(flash_attention.launches_by)
+    assert torch.equal(flash_attention(q, k, v), tref.flash_attention_ref(q, k, v))
+    assert flash_attention.launches == before and flash_attention.launches_by == by

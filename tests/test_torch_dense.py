@@ -33,6 +33,17 @@ from repro_torch.search.oracle import (DenseOracleSearcher, OracleSearcher,
                                        hybrid_oracle_fuse)
 from repro_torch.search.searcher import DenseSearcher, SearchConfig
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's tests and fixtures: its many
+    small ops then do not crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DIM = 16
 TOL = 1e-6
 JAX_FNS = {"pallas": jops.dot_topk_batch, "jax_ref": jref.dot_topk_batch_ref}

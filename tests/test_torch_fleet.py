@@ -17,6 +17,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import partition as jp
 from repro.core.gateway import WindowPolicy as JWindowPolicy
@@ -32,6 +33,17 @@ from repro_torch.search.oracle import (DenseOracleSearcher, OracleSearcher,
                                        hybrid_oracle_fuse)
 from repro_torch.search.searcher import SearchConfig
 from repro_torch.search.service import build_partitioned_search_app as t_build
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's tests and fixtures: its many
+    small ops then do not crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 K = 10
 DIM = 16

@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.cache import HydrationCache as JCache
 from repro.core.kvstore import KVStore as JKV
@@ -36,6 +37,17 @@ from repro_torch.index.tokenizer import tokenize
 from repro_torch.search.searcher import (LazySearcher, SearchConfig, Searcher,
                                          hydrate_searcher, lazy_hydrate_dense_searcher,
                                          lazy_hydrate_searcher, make_search_handler)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's tests and fixtures: its many
+    small ops then do not crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 K = 10
 DIM = 16

@@ -23,6 +23,17 @@ from repro_torch.kernels.bm25_block import bm25_block_scores
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, theta_lower_bound
 from repro_torch.kernels.topk import topk
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's tests and fixtures: its many
+    small ops then do not crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-6
 _F32 = (np.float32(0.9), np.float32(0.4), np.float32(12.0))
 

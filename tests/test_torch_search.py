@@ -19,6 +19,17 @@ from repro_torch.search import bm25 as tbm25
 from repro_torch.search.searcher import SearchConfig, Searcher
 from test_torch_kernels import assert_topk_close
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's tests and fixtures: its many
+    small ops then do not crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 K = 10
 
 

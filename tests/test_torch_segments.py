@@ -7,11 +7,22 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.data.corpus import hash_embedder, synth_corpus, synth_fielded_corpus
 from repro.index import builder as jb
 from repro_torch.core.directory import RamDirectory as TRamDirectory
 from repro_torch.index import builder as tb
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's tests and fixtures: its many
+    small ops then do not crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _files(directory):

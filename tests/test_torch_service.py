@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.runtime import RuntimeConfig as JRuntimeConfig
 from repro.data.corpus import synth_corpus, synth_queries
@@ -18,6 +19,17 @@ from repro.search.service import build_search_app as j_build
 from repro_torch.core.runtime import RuntimeConfig as TRuntimeConfig
 from repro_torch.search.searcher import SearchConfig as TSearchConfig
 from repro_torch.search.service import build_search_app as t_build
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's tests and fixtures: its many
+    small ops then do not crowd the other test workers' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CONFIGS = {
     "dense": {},
