@@ -7,6 +7,7 @@ NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --docs 250000   # a smaller partition
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
+    python3 chip_smoke.py --topk-only     # phases 1, 2, then K2 and K4 alone (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -17,7 +18,8 @@ Phases (each raises on failure; the script then exits non-zero):
   4. K3, K2 and K1 against their twins on that index's real gathered
      blocks for Q=1 and Q=64, bitwise, and K1 against the dense plain path;
      per-kernel times with CUDA events beside the twin's, a library call's
-     and the least time the card could take; warm latency of the pruned +
+     (timed in turns with the kernel: kernel, library, library, kernel) and
+     the least time the card could take; warm latency of the pruned +
      kernels, dense + kernels and dense plain searchers, paired query by
      query;
   5. end to end through the gateway: one cold query, 20 warm queries and a
@@ -73,7 +75,15 @@ Phases (each raises on failure; the script then exits non-zero):
      retrieval routes agree; bert4rec's serving top-100 equals a matmul +
      ``ref.topk_ref``. K6 is timed beside its twin,
      ``torch.nn.functional.embedding_bag`` and the bound at fm's linear term
-     (D 1), fm's tower (D 10) and dcn-v2's (D 16), 262,144 bags each.
+     (D 1), fm's tower (D 10) and dcn-v2's (D 16), 262,144 bags each; K2
+     at bert4rec's vocabulary top-100 (512 × 2²⁰ + 2 logits) against its
+     twin, bitwise, and timed in turns with ``torch.topk``.
+
+``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
+shapes on data made from a seed (bert4rec-like logits with a popularity
+skew, a mostly-zero 1M-doc accumulator of row stride n + 1, 250,000 × 768
+rows at Q 1 and 64), each held bitwise to its twin and timed in turns with
+its library call, K4's own launch apart from K2's merge.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -126,6 +136,15 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def paired_ms(fn, lib_fn, reps: int = 20) -> tuple[float, float]:
+    """``cuda_ms`` of a kernel and of the library call that computes the
+    same function, taken in turns (kernel, library, library, kernel), each
+    the mean of its two readings."""
+    a1, b1 = cuda_ms(fn, reps), cuda_ms(lib_fn, reps)
+    b2, a2 = cuda_ms(lib_fn, reps), cuda_ms(fn, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -185,15 +204,7 @@ def kernel_phase(searcher, queries, torch, bm25, ref, kern):
 
         # K2, over the dense accumulator of these queries
         acc = bm25.score_dense(state, t, w, max_blocks=MAX_BLOCKS)
-        k2 = lambda: kern["K2"](acc, K)                            # noqa: E731
-        k2_twin = lambda: ref.topk_ref(acc, K)                     # noqa: E731
-        (gv, gi), (wv, wi) = k2(), k2_twin()
-        torch.cuda.synchronize()
-        require(bits_equal(gv, wv) and bits_equal(gi, wi), f"K2 != twin at Q={Q}")
-        rows.setdefault("K2", {})[Q] = dict(
-            err=max_abs_err(gv, wv), ms=cuda_ms(k2), plain_ms=cuda_ms(k2_twin),
-            library_ms=cuda_ms(lambda: torch.topk(acc, K, dim=-1)),
-            bound=bound_ms(acc.numel() * 4 + Q * K * 8, acc.numel()))
+        rows.setdefault("K2", {})[Q] = k2_case(kern["K2"], ref, torch, acc, K, f"K2 Q={Q}")
 
         # K1
         tf_p = torch.where(valid, tf, 0)
@@ -222,6 +233,102 @@ def kernel_phase(searcher, queries, torch, bm25, ref, kern):
         print(f"[4] K1 Q={Q}: touched {rows['K1'][Q]['touched']} of "
               f"{rows['K1'][Q]['valid']} valid blocks; top-k == dense plain path", flush=True)
     return rows
+
+
+def k2_case(k2, ref, torch, s, k, what, reps=20) -> dict:
+    """K2 on score rows ``s`` against its twin, bitwise (values and ids),
+    then timed beside the twin and, in turns, ``torch.topk``."""
+    (gv, gi), (wv, wi) = k2(s, k), ref.topk_ref(s, k)
+    torch.cuda.synchronize()
+    require(bits_equal(gv, wv) and bits_equal(gi, wi), f"{what}: K2 != twin")
+    ms, library_ms = paired_ms(lambda: k2(s, k), lambda: torch.topk(s, k, dim=-1), reps)
+    Q, N = s.shape
+    return dict(err=max_abs_err(gv, wv), ms=ms, library_ms=library_ms,
+                plain_ms=cuda_ms(lambda: ref.topk_ref(s, k), reps=5),
+                bound=bound_ms(s.numel() * 4 + Q * k * 8, s.numel()),
+                shape=f"Q={Q}, N={N}, k={k}")
+
+
+def k4_case(k4, ref, torch, q, rows, k, what) -> dict:
+    """K4 (+ K2's merge) against its twin, bitwise, then timed beside the
+    twin and, in turns, ``torch.matmul`` + ``torch.topk``."""
+    (gv, gi), (wv, wi) = k4(q, rows, k), ref.dot_topk_batch_ref(q, rows, k)
+    torch.cuda.synchronize()
+    require(bits_equal(gv, wv) and bits_equal(gi, wi), f"{what}: K4 != twin")
+    ms, library_ms = paired_ms(lambda: k4(q, rows, k),
+                               lambda: torch.topk(torch.matmul(q, rows.T), k, dim=-1))
+    (Q, D), N = q.shape, rows.shape[0]
+    return dict(err=max_abs_err(gv, wv), ms=ms, library_ms=library_ms,
+                plain_ms=cuda_ms(lambda: ref.dot_topk_batch_ref(q, rows, k), reps=5),
+                bound=bound_ms(N * D * 4 + Q * D * 4 + Q * k * 8, 2 * Q * N * D),
+                shape=f"Q={Q}, N={N}, D={D}, k={k}")
+
+
+def print_case(tag, name, r) -> None:
+    print(f"[{tag}] {name} at {r['shape']}: bitwise == twin; kernel {r['ms']:.4f} ms, "
+          f"library {r['library_ms']:.4f} ms, twin {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+
+
+def case_entry(r) -> dict:
+    """One shape of a kernel's entry in the kernels line."""
+    return {"ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "max_abs_err": r["err"],
+            "shape": r["shape"]}
+
+
+# --topk-only: K2 and K4 at the main path's shapes on data made from a seed
+TOPK_ONLY = dict(vocab=(512, (1 << 20) + 2, 100), search=(64, 1_000_000, K),
+                 dense=(250_000, VEC_DIM, K))
+
+
+def topk_phase(kern, ref, torch, device="cuda", seed=0) -> dict:
+    """K2 at bert4rec's vocabulary top-k (512 rows of 2²⁰ + 2 logits of a
+    64-wide model, a popularity skew toward low ids) and at the search
+    shape (64 rows of a 1M-doc accumulator, stride n + 1, all 0.0 but 1 to
+    4,096 hits a row), K4 at Q 1 and Q 64 over 250,000 × 768 rows; each
+    bitwise against its twin and timed beside it and its library call."""
+    g = torch.Generator(device).manual_seed(seed)
+    out = {}
+    Q, N, k = TOPK_ONLY["vocab"]
+    h = torch.randn(Q, 64, device=device, generator=g)
+    emb = torch.randn(N, 64, device=device, generator=g) * 0.125
+    pop = torch.log1p(torch.arange(N, device=device, dtype=torch.float32))
+    logits = torch.matmul(h, emb.T) - 0.5 * pop
+    del h, emb, pop
+    out["K2 vocabulary"] = k2_case(kern["K2"], ref, torch, logits, k, "vocabulary", reps=5)
+    print_case("t", "K2", out["K2 vocabulary"])
+    del logits
+    Q, n, k = TOPK_ONLY["search"]
+    acc = torch.zeros(Q, n + 1, device=device)
+    for q in range(Q):
+        hits = 1 << (q % 13)
+        idx = torch.randint(0, n, (hits,), device=device, generator=g)
+        acc[q, idx] = torch.rand(hits, device=device, generator=g) * 20
+    out["K2 search"] = k2_case(kern["K2"], ref, torch, acc[:, :n], k, "search")
+    print_case("t", "K2 (rows of stride n + 1)", out["K2 search"])
+    del acc
+    N, D, k = TOPK_ONLY["dense"]
+    rows = torch.randn(N, D, device=device, generator=g)
+    qs = torch.randn(64, D, device=device, generator=g)
+    from repro_torch.kernels import topk as k2
+    merge = k2.merge
+    for Q in (1, 64):
+        q = qs[:Q].contiguous()
+        out[f"K4 Q={Q}"] = r = k4_case(kern["K4"], ref, torch, q, rows, k, f"K4 Q={Q}")
+        print_case("t", "K4 (+ K2's merge)", r)
+        # the split: K4's own launch (the merge skipped), then the merge alone
+        kept = {}
+        k2.merge = lambda v, i, *a, **kw: kept.update(v=v, i=i) or (v, i)   # noqa: E731
+        try:
+            alone = cuda_ms(lambda: kern["K4"](q, rows, k))
+        finally:
+            k2.merge = merge
+        if kept:                         # on the card (the CPU's twin merges nothing)
+            print(f"[t] K4 at Q={Q}: its own launch {alone:.4f} ms, K2's merge of "
+                  f"{kept['v'].shape[1]} survivors a query "
+                  f"{cuda_ms(lambda: merge(kept['v'], kept['i'], k, N)):.4f} ms", flush=True)
+    return out
 
 
 def latency_phase(searcher, queries, torch, configs, kern, reps: int = 5):
@@ -363,23 +470,12 @@ def k4_phase(app, cfg, queries, torch, ref, k4, device):
     rows = entry.searcher.rows
     N, D = rows.shape
     qv = torch.as_tensor(np.stack([app.embedder(q) for q in queries])).to(rows.device)
+    from repro_torch.kernels.dot_topk import survivors
     out = {}
     for Q in (1, len(queries)):
-        q = qv[:Q].contiguous()
-        (gv, gi), (wv, wi) = k4(q, rows, K), ref.dot_topk_batch_ref(q, rows, K)
-        torch.cuda.synchronize()
-        require(bits_equal(gv, wv) and bits_equal(gi, wi), f"K4 != twin at Q={Q}")
-        n_chunks = -(-N // 1024)
-        out[Q] = dict(
-            err=max_abs_err(gv, wv), ms=cuda_ms(lambda: k4(q, rows, K)),
-            plain_ms=cuda_ms(lambda: ref.dot_topk_batch_ref(q, rows, K), reps=5),
-            library_ms=cuda_ms(lambda: torch.topk(torch.matmul(q, rows.T), K, dim=-1)),
-            bound=bound_ms(N * D * 4 + Q * D * 4 + Q * K * 8, 2 * Q * N * D),
-            survivors=Q * n_chunks * K)
-        r = out[Q]
-        print(f"[6] K4 Q={Q}, N={N}, D={D}: bitwise == twin; kernel + K2 merge {r['ms']:.4f} ms, "
-              f"twin {r['plain_ms']:.3f} ms, matmul + torch.topk {r['library_ms']:.4f} ms, bound "
-              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+        out[Q] = k4_case(k4, ref, torch, qv[:Q].contiguous(), rows, K, f"K4 Q={Q}")
+        out[Q]["survivors"] = Q * survivors(N, K)
+        print_case("6", "K4 (+ K2's merge)", out[Q])
     del entry, rows
     torch.cuda.empty_cache()
     return out
@@ -389,8 +485,8 @@ def k4_phase(app, cfg, queries, torch, ref, k4, device):
 # its counter for each launch of it.
 # K5's three kernels (f32 CUDA cores, bf16 tensor cores, bf16 split-KV) each
 # count once a call; split-KV's merge launch is not counted.
-TRACE_NAMES = {"K1": ("pruned_accumulate_kernel",), "K2": ("topk_rounds_kernel",),
-               "K3": ("bm25_block_kernel",), "K4": ("dot_topk_chunks_kernel",),
+TRACE_NAMES = {"K1": ("pruned_accumulate_kernel",), "K2": ("topk_select_kernel",),
+               "K3": ("bm25_block_kernel",), "K4": ("dot_topk_tiles_kernel",),
                "K5": ("flash_fwd_kernel", "flash_tc_fwd_kernel", "flash_split_fwd_kernel"),
                "K6": ("embedding_bag_kernel",)}
 PROFILE_ATTEMPTS = 3
@@ -1034,10 +1130,11 @@ def recsys_batch(cfg, batch: int, seed: int = 0, step: int = 0) -> dict:
 
 
 def merge_rounds(survivors: int, k: int) -> int:
-    """K2 launches of ``topk.merge`` over ``survivors`` per row."""
+    """K2 launches of ``topk.merge`` over ``survivors`` per row: a round
+    until exactly k are left."""
     from repro_torch.kernels.topk import DEFAULT_CHUNK
     chunk, n = max(DEFAULT_CHUNK, 2 * k), 0
-    while survivors > k:
+    while survivors != k:
         survivors, n = -(-survivors // chunk) * k, n + 1
     return n
 
@@ -1194,6 +1291,7 @@ def recsys_arch(name, kern, ref, torch, device, seed):
     retrieve, check; release nothing (the caller does)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import recsys as tr
+    from repro_torch.kernels.dot_topk import survivors
     from repro_torch.models.common import init_params, tree_leaves
     cfg = get_arch(name).full_config()
     base = torch.cuda.memory_allocated()
@@ -1293,16 +1391,12 @@ def recsys_arch(name, kern, ref, torch, device, seed):
         got = answers["serve_p99"]
         require(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
                 "bert4rec serving top-k != matmul + ref.topk_ref")
+        print(f"[8] bert4rec: serving top-{k} == matmul + ref.topk_ref on the card (ids, bits)",
+              flush=True)
         # K2 at the vocabulary top-k: the serving route's largest kernel
-        out["k2_vocab"] = dict(
-            ms=cuda_ms(lambda: kern["K2"](logits, k), reps=5),
-            library_ms=cuda_ms(lambda: torch.topk(logits, k, dim=-1), reps=5),
-            bound=bound_ms(logits.numel() * 4 + logits.shape[0] * k * 8, logits.numel()),
-            shape=f"Q={logits.shape[0]}, N={logits.shape[1]}, k={k}")
-        r = out["k2_vocab"]
-        print(f"[8] bert4rec: serving top-{k} == matmul + ref.topk_ref on the card (ids, bits); "
-              f"K2 at {r['shape']}: kernel {r['ms']:.3f} ms, torch.topk {r['library_ms']:.3f} "
-              f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+        out["k2_vocab"] = k2_case(kern["K2"], ref, torch, logits, k, "bert4rec vocabulary",
+                                  reps=5)
+        print_case("8", "K2, bert4rec's vocabulary top-k,", out["k2_vocab"])
         del logits, want
 
     # retrieval_cand on both routes
@@ -1317,7 +1411,7 @@ def recsys_arch(name, kern, ref, torch, device, seed):
         expected = dict(tower)
         if use_kernel:
             expected["K4"] = 1
-            expected["K2"] = merge_rounds(-(-RECSYS_SHAPES["cands"] // 1024) * k, k)
+            expected["K2"] = merge_rounds(survivors(RECSYS_SHAPES["cands"], k), k)
         else:
             expected["K2"] = topk_launches(RECSYS_SHAPES["cands"], k)
         ms, launches[route] = timed_route(kern, route, lambda: routes.__setitem__(
@@ -1382,7 +1476,7 @@ def k6_line(results, launches, err) -> dict:
         "shapes": {label: {**{key: r[key] for key in keys}, "bound_ms": r["bound"][0],
                            "bound_by": r["bound"][1]} for label, r in shapes.items()},
         "serve": {name: {key: r[key] for key in ("serve_p99", "serve_bulk", "retrieval_K4",
-                                                 "retrieval_plain", "peak", "k2_vocab")
+                                                 "retrieval_plain", "peak")
                          if key in r}
                   for name, r in results.items()},
     }
@@ -1394,6 +1488,9 @@ def main() -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="phases 1, 2 and 7 only (a shake-out of the LM path; prints no "
                          "ok line)")
+    ap.add_argument("--topk-only", action="store_true",
+                    help="phases 1, 2 and K2 and K4 at the main path's shapes on seeded data "
+                         "(prints no ok line)")
     ap.add_argument("--recsys-only", action="store_true",
                     help="phases 1, 2 and 8 only (a shake-out of the recsys path; prints no "
                          "ok line)")
@@ -1438,7 +1535,7 @@ def main() -> int:
     print(f"[2] kernels built in {time.perf_counter() - t0:.1f} s into {out}", flush=True)
     for name in backend.SOURCES:
         for line in (out / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[2] {name}: {line.strip()}", flush=True)
 
     if args.lm_only:
@@ -1446,6 +1543,15 @@ def main() -> int:
         print(json.dumps({"kernels": [k5_line(serve, k5, lm_launches)]}), flush=True)
         print(smi, flush=True)
         print("chip_smoke: --lm-only, a partial run", flush=True)
+        return 0
+    if args.topk_only:
+        t0 = time.perf_counter()
+        cases = topk_phase(kern, ref, torch)
+        print(f"[t] K2 and K4 checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"topk_only": {name: case_entry(r) for name, r in cases.items()}}),
+              flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --topk-only, a partial run", flush=True)
         return 0
     if args.recsys_only:
         results, rs_launches, err = recsys_phase(kern, ref, torch)
@@ -1528,6 +1634,8 @@ def main() -> int:
          "bound_by": rows[n][Q]["bound"][1], "library_ms": rows[n][Q]["library_ms"],
          "shape": f"Q={Q}, T={MAX_TERMS}, M={MAX_BLOCKS}, B=128, n_docs={args.docs}"}
         for n in ("K3", "K2", "K1")]}
+    line["kernels"][1]["shapes"] = {"search": case_entry(rows["K2"][Q]),
+                                    "bert4rec vocabulary": case_entry(results["bert4rec"]["k2_vocab"])}
     line["kernels"].append({
         "name": "dot_topk_batch", "route": "cuda", "source": "src/repro_torch/kernels/csrc/dot_topk.cu",
         "replaces": "src/repro/kernels/dot_topk.py:69", "launches": launches["fleet:dense"]["K4"],
@@ -1537,7 +1645,8 @@ def main() -> int:
         "bound_ms": k4[Q]["bound"][0], "bound_by": k4[Q]["bound"][1],
         "library_ms": k4[Q]["library_ms"],
         "shape": f"Q={Q}, N={sizes[0]}, D={VEC_DIM}, k={K}; ms includes K2's merge of "
-                 f"{k4[Q]['survivors']} survivors"})
+                 f"{k4[Q]['survivors']} survivors",
+        "shapes": {f"Q={q}": case_entry(k4[q]) for q in sorted(k4)}})
     line["kernels"].append(k5_line(serve, k5, launches))
     line["kernels"].append(k6_line(results, rs_launches, k6_err))
     print(json.dumps(line), flush=True)

@@ -44,14 +44,15 @@ SIGNATURES = {
         "bm25_block_scores_launch": (_I, [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _F, _P]),
     },
     "topk": {
-        "topk_rounds_launch": (_I, [_P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P, _P]),
+        "topk_smem_bytes": (_LL, [_I, _I]),
+        "topk_select_launch": (_I, [_P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P, _P]),
     },
     "bm25_pruned": {
         "bm25_pruned_smem_bytes": (_LL, [_I, _I, _I]),
         "bm25_pruned_accumulate_launch": (_I, [_P] * 8 + [_I] * 6 + [_F] * 4 + [_P]),
     },
     "dot_topk": {
-        "dot_topk_chunks_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P]),
+        "dot_topk_tiles_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P]),
     },
     "flash_attention": {
         "flash_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),

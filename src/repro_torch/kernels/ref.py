@@ -22,11 +22,12 @@ Two orders are pinned explicitly because the library's own differ by device:
 
 A third is pinned because the library's depends on the shape:
 
-* a dense-tier score (:func:`dot_scores_f32`) sums ``c_d · q_d`` over d
-  from 0 to D − 1, one rounded product and one rounded add a step, from
-  +0.0 — the order K4 computes, and one that depends on D alone, so a
-  query's bits depend neither on its batch neighbours nor on the size of
-  the partition. ``torch.matmul`` blocks its sums by shape.
+* a dense-tier score (:func:`dot_scores_f32`) is a chain of fused
+  multiply-adds over d from 0 to D − 1, ``acc = fma(c_d, q_d, acc)`` from
+  +0.0, one rounding a step (:func:`fma_f32`) — the order K4 computes, and
+  one that depends on D alone, so a query's bits depend neither on its
+  batch neighbours nor on the size of the partition. ``torch.matmul``
+  blocks its sums by shape.
 
 Top-k ties go to the lowest index (a stable descending sort), never
 ``torch.topk``, whose tie order is unspecified.
@@ -160,13 +161,13 @@ def bm25_pruned_topk_ref(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
 
 def dot_scores_f32(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     """queries (Q, D), cands (N, D) f32 → (Q, N) f32 inner products in the
-    pinned order: ``acc = +0.0``, then ``acc = acc + c_d·q_d`` for d = 0 …
-    D − 1, each product and each sum rounded once."""
+    pinned order: ``acc = +0.0``, then ``acc = fma(c_d, q_d, acc)`` for
+    d = 0 … D − 1, each step one fused multiply-add rounded once."""
     Q, D = queries.shape
     cT = cands.t().contiguous()                       # (D, N): one row per step
     acc = torch.zeros(Q, cands.shape[0], dtype=torch.float32, device=cands.device)
     for d in range(D):
-        acc = acc + queries[:, d, None] * cT[d][None, :]
+        acc = fma_f32(queries[:, d, None], cT[d][None, :], acc)
     return acc
 
 

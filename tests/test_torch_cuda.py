@@ -86,6 +86,60 @@ def test_topk_kernel_past_the_old_grid_limit(cuda):
     assert gv.shape == (70_000, 5) and _bits(gv, wv) and _bits(gi, wi)
 
 
+def _k2_case(case, k, rng, device):
+    """Score rows for K2's select at its edges, as a (Q, n) tensor on
+    ``device`` (a strided view for "stride_n_plus_1")."""
+    if case == "signed_zeros":       # ±0.0 tied across chunks, a few hits
+        s = np.where(rng.random((3, 40_000)) < 0.5, np.float32(-0.0), np.float32(0.0))
+        s[:, rng.integers(0, 40_000, 5)] = 1.5
+        s[1, ::997] = -0.0
+    elif case == "sparse_1m":        # a 1M-wide accumulator, all 0.0 but a few hits
+        s = np.zeros((2, 1_000_000), np.float32)
+        s[0, rng.integers(0, 1_000_000, 7)] = rng.uniform(1, 9, 7)
+        s[1, rng.integers(0, 1_000_000, 300)] = rng.uniform(1, 9, 300)
+    elif case == "stride_n_plus_1":  # K1's acc[:, :n_docs]: rows of stride n_docs + 1
+        n = 100_003
+        acc = np.zeros((4, n + 1), np.float32)
+        acc[:, rng.integers(0, n, 400)] = rng.integers(1, 4, 400)
+        acc[:, n] = 99.0                                     # the dump slot, past the view
+        view = torch.from_numpy(acc).to(device)[:, :n]
+        assert view.stride(0) == n + 1
+        return view
+    elif case == "few_live":         # fewer finite values than k
+        s = np.full((3, 5000), -np.inf, np.float32)
+        s[:, rng.integers(0, 5000, k // 2)] = rng.standard_normal(k // 2)
+    else:                            # "logits": a handful of exponents, wide ties
+        s = rng.standard_normal((3, 70_001)).astype(np.float32)
+        s[2, ::5] = s[2, 1]
+    return torch.from_numpy(s.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 1024])
+@pytest.mark.parametrize("case", ["signed_zeros", "sparse_1m", "stride_n_plus_1", "few_live",
+                                  "logits"])
+def test_topk_select_edges_equal_twin(cuda, case, k):
+    """K2's radix select, bitwise against the twin: signed zeros, skewed
+    and mostly-zero rows, unaligned strided rows, fewer live values than k."""
+    s = _k2_case(case, k, np.random.default_rng(k), cuda)
+    gv, gi = topk(s, k)
+    wv, wi = ref.topk_ref(s.cpu(), k)            # the CPU's stable sort ties ±0.0 by index
+    assert gv.shape == (s.shape[0], k) and _bits(gv, wv) and _bits(gi, wi)
+    if case == "stride_n_plus_1":
+        assert not (gi == s.shape[1]).any()                  # never the dump slot
+
+
+def test_topk_kernel_at_bert4rec_width(cuda):
+    """Q 8 × 1,048,578 logits (bert4rec's n_items + 2) at k 100."""
+    g = torch.Generator(cuda).manual_seed(8)
+    s = torch.randn(8, 1_048_578, device=cuda, generator=g) * 3
+    s[3, 16300:16450] = s[3].max()                           # 150 tied across a chunk edge
+    before = topk.launches
+    gv, gi = topk(s, 100)
+    assert topk.launches == before + 3          # 129 chunks of 8,192, then 2 and 1 merge blocks
+    wv, wi = ref.topk_ref(s, 100)
+    assert _bits(gv, wv) and _bits(gi, wi)
+
+
 @pytest.mark.parametrize("T,M,n_docs,k", [(1, 1, 200, 10), (8, 4, 2000, 25), (16, 8, 4000, 10),
                                           (1, 2, 300, 200)])
 def test_bm25_pruned_kernel_equals_twin(cuda, T, M, n_docs, k):
@@ -98,12 +152,14 @@ def test_bm25_pruned_kernel_equals_twin(cuda, T, M, n_docs, k):
 
 
 # The dense tier's width (D=768, k=10) at every N and Q; then widths that
-# are no multiple of the kernel's 8-column tile (its partial last tile), and
-# k of 1, 100 and a whole chunk.
+# are no multiple of 4 (D 13: 4-byte copies) or of the kernel's 32-column
+# slab (D 100: a partial last slab), k of 1, 100 and the largest, 1,024
+# (above the 128 rows of a tile), and Q past one 64-query tile.
 K4_CASES = ([(N, Q, 768, 10) for N in (53, 1091, 250_000) for Q in (1, 7, 64)]
             + [(1091, 7, 13, 10), (250_000, 64, 13, 1), (1091, 64, 100, 100),
                (53, 7, 100, 100), (250_000, 1, 100, 100), (4096, 7, 768, 1),
-               (3000, 7, 13, 1024)])
+               (3000, 7, 13, 1024), (250_000, 100, 768, 10), (53, 100, 13, 10),
+               (250_000, 33, 768, 100)])
 
 
 @pytest.mark.parametrize("N,Q,D,k", K4_CASES)

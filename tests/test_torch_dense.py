@@ -11,6 +11,8 @@ reference's own scores lie within that tolerance of each other. Inside the
 port the twin is bitwise Q-invariant and partition-size-invariant.
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -120,6 +122,39 @@ def test_partition_bits_match_full_corpus_bits():
             if tail + i in full:
                 assert b == full[tail + i]
         assert len(set(full) & {tail + i for i in pi[0].tolist()}) > 0
+
+
+def _fma_exact(a, b, c) -> np.float32:
+    """float32 ``a·b + c`` rounded once (to nearest, ties to even), from
+    exact rationals: independent of ``ref.fma_f32``'s float64 emulation.
+    An exact zero comes back as +0.0 (the chains below start from +0.0 and
+    have no zero products)."""
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(x))
+    near = [f, np.nextafter(f, np.float32(np.inf)), np.nextafter(f, np.float32(-np.inf))]
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                    int(np.float32(y).view(np.uint32)) & 1))
+
+
+def test_dot_scores_are_one_fma_a_column():
+    """K4's pinned order: ``acc = fma(c_d, q_d, acc)`` for d = 0 … D − 1 from
+    +0.0, one rounding a step — bitwise, against an exact-rational chain;
+    and not the earlier order of two roundings a step (product, then sum)."""
+    rng = np.random.default_rng(21)
+    q = rng.standard_normal((3, 24)).astype(np.float32)
+    c = rng.standard_normal((40, 24)).astype(np.float32)
+    got = ref.dot_scores_f32(*_t(q, c)).numpy()
+    want = np.zeros((3, 40), np.float32)
+    two = np.zeros((3, 40), np.float32)
+    for i in range(3):
+        for r in range(40):
+            acc = np.float32(0.0)
+            for d in range(24):
+                acc = _fma_exact(c[r, d], q[i, d], acc)
+                two[i, r] = np.float32(two[i, r] + np.float32(c[r, d] * q[i, d]))
+            want[i, r] = acc
+    assert (_bits(got) == _bits(want)).all()
+    assert (_bits(got) != _bits(two)).any()
 
 
 def test_twin_pads_chunks_and_marks_empty_slots():

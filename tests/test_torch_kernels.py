@@ -21,7 +21,7 @@ from repro.kernels.bm25_pruned import theta_lower_bound as j_theta
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bm25_block import bm25_block_scores
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, theta_lower_bound
-from repro_torch.kernels.topk import topk
+from repro_torch.kernels.topk import order_keys, topk
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -188,6 +188,73 @@ def test_topk_leading_q():
         wv, wi = jops.topk(rows[q], 20, chunk=512, interpret=True)
         np.testing.assert_array_equal(gv[q].numpy(), np.asarray(wv))
         np.testing.assert_array_equal(gi[q].numpy(), np.asarray(wi))
+
+
+def _select_model(keys: np.ndarray, k: int) -> np.ndarray:
+    """``csrc/select.cuh`` step by step on one row of keys: 8-bit histogram
+    passes from the top until the bin holding rank ``need`` is taken whole
+    or the key is complete, then everything above the prefix and the first
+    ``need`` positions equal to it, ranked by (key desc, position asc)."""
+    prefix, bits, need, done = 0, 0, k, False
+    while not done and bits < 32:
+        part = np.ones(len(keys), bool) if bits == 0 else (keys >> (32 - bits)) == prefix
+        hist = np.bincount((keys[part] >> (24 - bits)) & 0xFF, minlength=256)
+        above, d = 0, 255
+        while above + hist[d] < need:
+            above += hist[d]
+            d -= 1
+        prefix, need, bits = (prefix << 8) | d, need - above, bits + 8
+        done = hist[d] == need
+    top = keys >> (32 - bits)
+    surv = np.concatenate([np.flatnonzero(top > prefix), np.flatnonzero(top == prefix)[:need]])
+    assert len(surv) == k
+    return np.array(sorted(surv, key=lambda p: (-int(keys[p]), p)), dtype=np.int64)
+
+
+def _k2_model(s: np.ndarray, k: int, chunk: int):
+    """K2's launches on one row: each chunk's select (padded with -inf up to
+    k), then merges over the survivors until k are left; a -inf value
+    carries the id N."""
+    n = len(s)
+    vals, ids = s, np.arange(n)
+    width, cut = n, max(chunk, k)
+    while True:
+        out_v, out_i = [], []
+        for c0 in range(0, max(width, 1), cut):
+            v = np.concatenate([vals[c0:c0 + cut],
+                                np.full(max(0, k - len(vals[c0:c0 + cut])), -np.inf, np.float32)])
+            pos = _select_model(order_keys(torch.from_numpy(v)).numpy(), k)
+            out_v.append(v[pos])
+            out_i.append(np.where(v[pos] == -np.inf, n, ids[np.minimum(c0 + pos, width - 1)]))
+        vals, ids = np.concatenate(out_v), np.concatenate(out_i)
+        width, cut = len(vals), max(chunk, 2 * k)
+        if width == k:
+            return vals, ids
+
+
+def test_select_keys_tie_signed_zeros_and_mark_neg_inf():
+    """The select's keys order floats as floats and key -0.0 as +0.0, so the
+    radix select (modelled step by step) ties the two zeros by index, keeps
+    each zero's own sign bit, and gives -inf slots (-inf, N) — bitwise the
+    twin's stable sort, across chunks and merges."""
+    f = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-30, 2.0, np.inf], np.float32)
+    keys = order_keys(torch.from_numpy(f)).numpy()
+    assert keys[3] == keys[4] and (np.diff(np.delete(keys, 3)) > 0).all()
+    rng = np.random.default_rng(17)
+    zeros = np.where(rng.random(3000) < 0.5, np.float32(-0.0), np.float32(0.0))
+    zeros[rng.integers(0, 3000, 4)] = 1.25
+    skewed = rng.standard_normal(3000).astype(np.float32)
+    skewed[::3] = skewed[7]
+    sparse = np.full(3000, -np.inf, np.float32)
+    sparse[rng.integers(0, 3000, 6)] = rng.standard_normal(6).astype(np.float32)
+    sparse[5] = -0.0
+    for row in (zeros, skewed, sparse):
+        for k, chunk in ((1, 256), (10, 256), (30, 64), (100, 1024)):
+            gv, gi = _k2_model(row, k, chunk)
+            wv, wi = tref.topk_ref(torch.from_numpy(row), k)
+            assert (gv.view(np.uint32) == wv.numpy().view(np.uint32)).all(), (k, chunk)
+            assert (gi == wi.numpy()).all(), (k, chunk)
+    assert list(_k2_model(sparse, 10, 64)[1][7:]) == [3000] * 3
 
 
 # -- K1: fused block-max pruned scoring + top-k -----------------------------------------
