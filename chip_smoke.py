@@ -8,6 +8,7 @@ NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
     python3 chip_smoke.py --topk-only     # phases 1, 2, then K2 and K4 alone (no ok line)
+    python3 chip_smoke.py --k1-k6-only    # phases 1, 2, then K1 and K6 alone (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -23,7 +24,8 @@ Phases (each raises on failure; the script then exits non-zero):
      kernels, dense + kernels and dense plain searchers, paired query by
      query;
   5. end to end through the gateway: one cold query, 20 warm queries and a
-     64-query micro-batch on the pruned + kernels route (K1, K2), the dense
+     64-query micro-batch on the pruned + kernels route (K1, which merges
+     its ranges' survivors itself), the dense
      + kernels route (K3, K2) and the dense plain route (no kernel), every
      answer equal (ids, score bits) to the dense plain route's. The launch
      counters are set to 0 before each route and read after it: each route
@@ -37,7 +39,7 @@ Phases (each raises on failure; the script then exits non-zero):
      hybrid), after every instance is killed so the first query is cold:
      one cold query, 20 warm queries and a 64-query micro-batch through
      ``submit``/``flush``, the launch counters set to 0 before the mode and
-     checked after it (sparse K1+K2, dense K4+K2, hybrid K1+K2+K4), on the
+     checked after it (sparse K1, dense K4+K2, hybrid K1+K2+K4), on the
      queries of phases 4-5. Dense answers equal the full-corpus
      ``DenseOracleSearcher`` (twin on the card) in ids and score bits;
      windowed answers equal serial ones bitwise; hybrid equals ``rrf_fuse``
@@ -85,6 +87,13 @@ skew, a mostly-zero 1M-doc accumulator of row stride n + 1, 250,000 × 768
 rows at Q 1 and 64), each held bitwise to its twin and timed in turns with
 its library call, K4's own launch apart from K2's merge.
 
+``--k1-k6-only`` runs phases 1-2 and then K1 and K6 alone at the main path's
+shapes on data made from a seed: K1 at Q 1 and 64 on ``synth_pruned_blocks``
+(T 16, M 64, B 128, 1M docs, k 10), K6 at fm's tower (262,144 × 39, D 10),
+fm's linear term (D 1) and dcn-v2's tower (262,144 × 26, D 16) on the
+streams' zipf ids; each held bitwise to its twin and timed in turns with it
+(K6 also beside ``F.embedding_bag``), K1's device time split by kernel.
+
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the JAX package ``repro``.
@@ -111,7 +120,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 FLEET_PARTS = 4
 VEC_DIM = 768                  # BERT-base dense retrievers (e.g. TCT-ColBERTv2)
-FLEET_MODES = {"sparse": ("K1", "K2"), "dense": ("K4", "K2"), "hybrid": ("K1", "K2", "K4")}
+FLEET_MODES = {"sparse": ("K1",), "dense": ("K4", "K2"), "hybrid": ("K1", "K2", "K4")}
 
 
 def nvidia_smi() -> str:
@@ -219,12 +228,10 @@ def kernel_phase(searcher, queries, torch, bm25, ref, kern):
                 f"K1 != twin at Q={Q}")
         require(bits_equal(gv, dv) and bits_equal(gi, di), f"K1 != dense plain at Q={Q}")
         touched = int(gt.sum())
-        kept = touched * docs.shape[-1]
         rows.setdefault("K1", {})[Q] = dict(
             err=max_abs_err(gv, wv), ms=cuda_ms(k1), plain_ms=cuda_ms(k1_twin),
             library_ms=None, touched=touched, valid=int(valid.sum()),
-            bound=bound_ms(kept * 9 + Q * MAX_TERMS * (4 + MAX_BLOCKS * 5) + Q * (K * 8 + 4),
-                           kept * 8))
+            bound=k1_bound(Q, touched, docs.shape[-1]))
         for name in ("K3", "K2", "K1"):
             r = rows[name][Q]
             print(f"[4] {name} Q={Q}: bitwise == twin; kernel {r['ms']:.4f} ms, twin "
@@ -331,6 +338,91 @@ def topk_phase(kern, ref, torch, device="cuda", seed=0) -> dict:
     return out
 
 
+# --k1-k6-only: K1 and K6 at the main path's shapes on data made from a seed
+K1_ONLY = dict(T=MAX_TERMS, M=MAX_BLOCKS, n_docs=1_000_000, k=K, queries=(1, N_QUERIES))
+BM25_PARAMS = (0.9, 0.4, 12.0)     # k1, b, avgdl of synth_pruned_blocks
+
+
+def k1_blocks(torch, Q, device, seed=0):
+    """Q queries of ``synth_pruned_blocks`` (seeds seed..seed+Q-1), stacked."""
+    from repro_torch.data.corpus import synth_pruned_blocks
+    c = K1_ONLY
+    parts = [synth_pruned_blocks(seed + q, n_terms=c["T"], max_blocks=c["M"],
+                                 n_docs=c["n_docs"]) for q in range(Q)]
+    return tuple(torch.from_numpy(np.stack(p)).to(device) for p in zip(*parts))
+
+
+def k1_bound(Q, touched, B) -> tuple[float, str]:
+    """K1's least time: the kept postings (tf, dl, doc: 9 B each), the
+    per-block inputs and the output, each moved once."""
+    kept = touched * B
+    return bound_ms(kept * 9 + Q * MAX_TERMS * (4 + MAX_BLOCKS * 5) + Q * (K * 8 + 4), kept * 8)
+
+
+def device_split(fn, calls: int = 5) -> dict:
+    """Device time a call of each kernel ``fn()`` launches, in µs, from a
+    ``torch.profiler`` trace over ``calls`` calls after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:48]: e.self_device_time_total / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def k1_k6_phase(kern, ref, torch, device="cuda") -> dict:
+    """K1 at Q 1 and 64 on seeded 1M-doc blocks, K6 at fm's and dcn-v2's
+    bulk shapes; each bitwise against its twin and timed in turns with it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys import _flat_ids
+    out = {}
+    n, k = K1_ONLY["n_docs"], K1_ONLY["k"]
+    for Q in K1_ONLY["queries"]:
+        args = (*k1_blocks(torch, Q, device), *BM25_PARAMS)
+        k1 = lambda: kern["K1"](*args, k=k, n_docs=n)                       # noqa: E731
+        twin = lambda: ref.bm25_pruned_topk_ref(*args, k=k, n_docs=n)        # noqa: E731
+        (gv, gi, gt), (wv, wi, wt) = k1(), twin()
+        torch.cuda.synchronize()
+        require(bits_equal(gv, wv) and bits_equal(gi, wi) and bits_equal(gt, wt),
+                f"K1 != twin at Q={Q}")
+        ms, plain_ms = paired_ms(k1, twin, reps=10)
+        touched = int(gt.sum())
+        r = out[f"K1 Q={Q}"] = dict(
+            err=max_abs_err(gv, wv), ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound=k1_bound(Q, touched, args[0].shape[-1]),
+            shape=f"Q={Q}, T={K1_ONLY['T']}, M={K1_ONLY['M']}, B=128, n_docs={n}, k={k}; "
+                  f"touched {touched} of {int(args[5].sum())} valid blocks")
+        r["split_us"] = device_split(k1)
+        print(f"[k] K1 at {r['shape']}: bitwise == twin; kernel {ms:.4f} ms, twin "
+              f"{plain_ms:.3f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]}); device µs a "
+              f"call by kernel {json.dumps(r['split_us'])}", flush=True)
+        del args
+    for label, arch, table_name in K6_SHAPES:
+        cfg = get_arch(arch).full_config()
+        D = 1 if table_name == "linear" else cfg.embed_dim
+        table = torch.randn(cfg.n_sparse * cfg.rows_per_field, D, device=device,
+                            generator=torch.Generator(device).manual_seed(0))
+        ids = _flat_ids(cfg, torch.as_tensor(recsys_batch(
+            cfg, RECSYS_SHAPES["serve_bulk"])["sparse"]).to(device))
+        r = out[f"K6 {label}"] = k6_timing(kern["K6"], ref, table, ids, torch)
+        w = torch.ones(ids.shape, dtype=torch.float32, device=device)
+        r["twin_turns"] = paired_ms(lambda: kern["K6"](table, ids, w),
+                                    lambda: ref.embedding_bag_ref(table, ids, w), reps=3)
+        print(f"[k] K6 {label} ({r['shape']}, {r['rows']} distinct rows): bitwise == twin; "
+              f"kernel {r['ms']:.4f} ms, F.embedding_bag {r['library_ms']:.4f} ms, twin "
+              f"{r['plain_ms']:.3f} ms; in turns with the twin {r['twin_turns'][0]:.4f} / "
+              f"{r['twin_turns'][1]:.3f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]})",
+              flush=True)
+        del table, ids
+        torch.cuda.empty_cache()
+    return out
+
+
 def latency_phase(searcher, queries, torch, configs, kern, reps: int = 5):
     """Measured time of the searcher's device call (encode → scores on the
     host, ``.cpu()`` included) per config, paired: each query runs on every
@@ -383,9 +475,9 @@ def latency_phase(searcher, queries, torch, configs, kern, reps: int = 5):
 
 
 # The kernels each gateway route must launch; every other kernel must stay at 0.
-PATHS = {"/search": ("K1", "K2"), "/search-dense-kernels": ("K3", "K2"), "/search-plain": ()}
+PATHS = {"/search": ("K1",), "/search-dense-kernels": ("K3", "K2"), "/search-plain": ()}
 # The route whose run gives each kernel's ``launches`` in the kernels line.
-COUNTED_ON = {"K1": "/search", "K2": "/search", "K3": "/search-dense-kernels"}
+COUNTED_ON = {"K1": "/search", "K2": "/search-dense-kernels", "K3": "/search-dense-kernels"}
 
 
 def gateway_phase(app, queries, torch, kern):
@@ -484,8 +576,9 @@ def k4_phase(app, cfg, queries, torch, ref, k4, device):
 # Each hand-written kernel's name in a device trace. Its wrapper adds one to
 # its counter for each launch of it.
 # K5's three kernels (f32 CUDA cores, bf16 tensor cores, bf16 split-KV) each
-# count once a call; split-KV's merge launch is not counted.
-TRACE_NAMES = {"K1": ("pruned_accumulate_kernel",), "K2": ("topk_select_kernel",),
+# count once a call; split-KV's merge launch is not counted. K1 counts its
+# range kernel; its theta kernel launches once a call beside it.
+TRACE_NAMES = {"K1": ("pruned_range_kernel",), "K2": ("topk_select_kernel",),
                "K3": ("bm25_block_kernel",), "K4": ("dot_topk_tiles_kernel",),
                "K5": ("flash_fwd_kernel", "flash_tc_fwd_kernel", "flash_split_fwd_kernel"),
                "K6": ("embedding_bag_kernel",)}
@@ -1491,6 +1584,9 @@ def main() -> int:
     ap.add_argument("--topk-only", action="store_true",
                     help="phases 1, 2 and K2 and K4 at the main path's shapes on seeded data "
                          "(prints no ok line)")
+    ap.add_argument("--k1-k6-only", action="store_true",
+                    help="phases 1, 2 and K1 and K6 at the main path's shapes on seeded data "
+                         "(prints no ok line)")
     ap.add_argument("--recsys-only", action="store_true",
                     help="phases 1, 2 and 8 only (a shake-out of the recsys path; prints no "
                          "ok line)")
@@ -1552,6 +1648,16 @@ def main() -> int:
               flush=True)
         print(smi, flush=True)
         print("chip_smoke: --topk-only, a partial run", flush=True)
+        return 0
+    if args.k1_k6_only:
+        t0 = time.perf_counter()
+        cases = k1_k6_phase(kern, ref, torch)
+        print(f"[k] K1 and K6 checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"k1_k6_only": {name: {**case_entry(r), **{
+            key: r[key] for key in ("twin_turns", "split_us") if key in r}}
+            for name, r in cases.items()}}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --k1-k6-only, a partial run", flush=True)
         return 0
     if args.recsys_only:
         results, rs_launches, err = recsys_phase(kern, ref, torch)

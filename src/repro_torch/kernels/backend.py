@@ -22,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -48,8 +49,10 @@ SIGNATURES = {
         "topk_select_launch": (_I, [_P, _P, _LL, _LL, _I, _I, _I, _I, _P, _P, _P]),
     },
     "bm25_pruned": {
-        "bm25_pruned_smem_bytes": (_LL, [_I, _I, _I]),
-        "bm25_pruned_accumulate_launch": (_I, [_P] * 8 + [_I] * 6 + [_F] * 4 + [_P]),
+        "bm25_pruned_theta_smem_bytes": (_LL, [_I] * 3),
+        "bm25_pruned_scatter_smem_bytes": (_LL, [_I, _I]),
+        "bm25_pruned_range_docs": (_I, [_I, _I]),
+        "bm25_pruned_launch": (_I, [_P] * 17 + [_I] * 7 + [_F] * 4 + [_P]),
     },
     "dot_topk": {
         "dot_topk_tiles_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P]),
@@ -174,5 +177,8 @@ def stream(t: torch.Tensor) -> int:
 
 def f32(x) -> float:
     """A scalar parameter as the float32 value the kernels compute with
-    (0-d tensors are read back to the host once)."""
+    (0-d tensors are read back to the host once; a Python number takes no
+    tensor, which costs a warm call several microseconds a parameter)."""
+    if isinstance(x, (float, int)):
+        return struct.unpack("f", struct.pack("f", x))[0]
     return float(torch.as_tensor(x, dtype=torch.float32).item())

@@ -1,6 +1,5 @@
 """K1: fused block-max pruned BM25 scoring + top-k — wrapper of
-``csrc/bm25_pruned.cu`` and K2's kernel, the port of
-``repro/kernels/bm25_pruned.py``.
+``csrc/bm25_pruned.cu``, the port of ``repro/kernels/bm25_pruned.py``.
 
 A block (t, m) is skipped when its score ceiling
 
@@ -11,20 +10,28 @@ every term's always-scored first block. Every top-k doc keeps all of its
 blocks, so the result equals the dense path bit for bit (the losslessness
 argument of the reference module docstring).
 
-On the card the fused pass is two kernels: ``csrc/bm25_pruned.cu``
-computes impacts, θ, the keep mask and the term-ordered accumulation into a
-zeroed (Q, n_docs + 1) scratch in device memory — 4 MB a query at 1M docs,
-far beyond one block's shared memory — and K2's chunked top-k and merge
-read it back. The helpers below are the twin's θ and bounds, in the same
-arithmetic order as the kernel.
+On the card a call is four launches of one C entry point, and no
+(Q, n_docs) array exists: ``pruned_theta_kernel`` (one block a query)
+computes the first-block impacts, θ and the keep mask;
+``pruned_count_kernel`` and ``pruned_scatter_kernel`` (one block a (query,
+term)) bucket the kept postings by range of R docs and term;
+``pruned_range_kernel`` (one block a (query, range)) accumulates its
+bucket's impacts in shared memory, term by term, selects the range's top
+k, and the query's last range block to finish merges the ranges'
+survivors, which lie in id order. The bucket, (Q, T·M·B) entries of 8 B,
+is the largest scratch in device memory.
+:func:`repro_torch.kernels.ref.bm25_pruned_ranges_ref` is that algorithm
+in plain PyTorch. The helpers below are the twin's θ and bounds, in the
+same arithmetic order as the kernels.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import backend, ref
-from repro_torch.kernels.topk import topk
 
 # Relative widening of the keep test (bound * PRUNE_SAFETY >= θ): absorbs
 # float rounding between the builder's f64 block_max and the query-time f32
@@ -107,22 +114,56 @@ def bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
             or ub.shape != (Q, T, M) or valid.shape != (Q, T, M):
         raise ValueError("bm25_pruned_topk: inconsistent shapes")
     lib = backend.library("bm25_pruned")
-    smem = lib.bm25_pruned_smem_bytes(T, M, B)
-    if smem > MAX_SMEM:
-        raise ValueError(f"T·B = {T * B} first-block postings need {smem} B of shared memory")
-    acc = torch.zeros(Q, n_docs + 1, dtype=torch.float32, device=tf.device)
-    touched = torch.empty(Q, dtype=torch.int32, device=tf.device)
-    with torch.cuda.device(tf.device):
-        err = lib.bm25_pruned_accumulate_launch(
-            *(x.data_ptr() for x in (tf, dl, docs, idf_q, ub, valid, acc, touched)),
-            Q, T, M, B, k, n_docs, backend.f32(k1), backend.f32(b), backend.f32(avgdl),
+    R, P = _plan(T, B, k, n_docs)
+    dev = tf.device
+    # scratch — the bucket (8-byte entries, first so that they are aligned),
+    # kept blocks, term starts, (term, range) counts, bucket starts, the
+    # ranges' survivors, the merge's count — and the outputs: one
+    # allocation each
+    sizes = (T * M * B * 2, T * M, T + 1, T * P, P * T + 1, P * k, P * k, 1)
+    bucket, kept, term_start, counts, starts, surv_vals, surv_ids, done = torch.empty(
+        Q * sum(sizes), dtype=torch.int32, device=dev).split([Q * n for n in sizes])
+    touched, vals, ids = torch.empty(Q * (1 + 2 * k), dtype=torch.int32, device=dev).split(
+        [Q, Q * k, Q * k])
+    vals = vals.view(torch.float32).view(Q, k)
+    ids = ids.view(Q, k)
+    with torch.cuda.device(dev):
+        err = lib.bm25_pruned_launch(
+            *(x.data_ptr() for x in (tf, dl, docs, idf_q, ub, valid, kept, term_start, counts,
+                                     bucket, starts, surv_vals, surv_ids, done, touched, vals,
+                                     ids)),
+            Q, T, M, B, k, n_docs, R, backend.f32(k1), backend.f32(b), backend.f32(avgdl),
             backend.f32(PRUNE_SAFETY), backend.stream(tf))
-    backend.check(lib, err, "bm25_pruned_accumulate_launch")
+    backend.check(lib, err, "bm25_pruned_launch")
     bm25_pruned_topk.launches += 1
-    vals, ids = topk(acc[:, :n_docs], k)
     if single:
         return vals[0], ids[0], touched[0]
     return vals, ids, touched
+
+
+@functools.lru_cache(maxsize=None)
+def range_docs(T: int, k: int) -> int:
+    """R, the docs one range block of the card's kernel owns for T terms and
+    k: as many as fit in its shared memory, a multiple of 32."""
+    return backend.library("bm25_pruned").bm25_pruned_range_docs(T, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(T: int, B: int, k: int, n_docs: int) -> tuple[int, int]:
+    """(R, P) of a call, after checking that its kernels fit in shared memory."""
+    lib = backend.library("bm25_pruned")
+    R = range_docs(T, k)
+    if R < 32:
+        raise ValueError(f"k = {k} leaves no shared memory for a range of docs")
+    P = -(-n_docs // R)
+    theta = lib.bm25_pruned_theta_smem_bytes(T, B, k)
+    if theta > MAX_SMEM:
+        raise ValueError(f"T·B = {T * B} first-block postings need {theta} B of shared memory")
+    scatter = lib.bm25_pruned_scatter_smem_bytes(T, P)
+    if scatter > MAX_SMEM:
+        raise ValueError(f"{T} terms × {P} ranges of {R} docs need {scatter} B of shared "
+                         f"memory")
+    return R, P
 
 
 bm25_pruned_topk.launches = 0

@@ -159,6 +159,39 @@ def bm25_pruned_topk_ref(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
     return vals, ids, touched
 
 
+def bm25_pruned_ranges_ref(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
+                           k: int, n_docs: int, range_docs: int):
+    """K1's algorithm on the card, in plain PyTorch, for the tests only:
+    the same impacts, θ and keep mask as :func:`bm25_pruned_topk_ref`, the
+    accumulator cut into ranges of ``range_docs`` docs (the last one
+    shorter), each range's top k by :func:`topk_ref` — fewer than k docs pad
+    with (-inf, n_docs) — and the ranges' survivors, in id order, merged by
+    :func:`topk_ref` again. Returns (vals, ids, touched) as the twin does."""
+    from repro_torch.kernels.bm25_pruned import keep_mask
+
+    single = tf.dim() == 3
+    if single:
+        tf, dl, docs, idf_q, ub, valid = (
+            x.unsqueeze(0) for x in (tf, dl, docs, idf_q, ub, valid))
+    imp = bm25_block_scores_ref(tf, dl, idf_q, k1, b, avgdl)
+    imp = torch.where(docs < n_docs, imp, 0.0)
+    keep = keep_mask(docs, imp, ub, valid, k=k, n_docs=n_docs)
+    acc = scatter_add_terms(docs, torch.where(keep[..., None], imp, 0.0), n_docs)
+    parts_v, parts_i = [], []
+    for lo in range(0, n_docs, range_docs):
+        v, i = topk_ref(acc[:, lo:min(lo + range_docs, n_docs)], k)
+        parts_v.append(v)
+        parts_i.append(torch.where(v == float("-inf"), n_docs, i + lo).to(torch.int32))
+    sv, si = torch.cat(parts_v, dim=1), torch.cat(parts_i, dim=1)
+    vals, pos = topk_ref(sv, k)
+    ids = torch.gather(si, 1, pos.clamp(max=si.shape[1] - 1).long())
+    ids = torch.where(vals == float("-inf"), n_docs, ids).to(torch.int32)
+    touched = keep.sum(dim=(1, 2), dtype=torch.int32)
+    if single:
+        return vals[0], ids[0], touched[0]
+    return vals, ids, touched
+
+
 def dot_scores_f32(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     """queries (Q, D), cands (N, D) f32 → (Q, N) f32 inner products in the
     pinned order: ``acc = +0.0``, then ``acc = fma(c_d, q_d, acc)`` for

@@ -12,7 +12,8 @@ import torch
 from repro_torch.data.corpus import synth_pruned_blocks
 from repro_torch.kernels import ref
 from repro_torch.kernels.bm25_block import bm25_block_scores
-from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
+from repro_torch.kernels import bm25_pruned
+from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, range_docs
 from repro_torch.kernels.dot_topk import dot_topk_batch
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.flash_attention import flash_attention, variant
@@ -149,6 +150,117 @@ def test_bm25_pruned_kernel_equals_twin(cuda, T, M, n_docs, k):
     got = bm25_pruned_topk(*args, *_F32, k=k, n_docs=n_docs)
     want = ref.bm25_pruned_topk_ref(*args, *_F32, k=k, n_docs=n_docs)
     assert all(_bits(g, w) for g, w in zip(got, want))
+
+
+
+# The smoke's 1M-doc index (T 16, M 64: about 20 ranges a query) at Q 1, 64
+# and 100; at k 100 and 200 (the range's floor 0, the merge by the radix
+# select); k 1,000 on an 8.8M-doc index (MS MARCO's passages: the P·k
+# survivors do not fit in a range, so the merge reads them from device
+# memory); T·B = 8,192 first-block postings (64 terms of 128).
+K1_RANGE_CASES = ([(16, 64, 1_000_000, 10, Q) for Q in (1, 64, 100)]
+                  + [(16, 64, 1_000_000, k, 4) for k in (100, 200)]
+                  + [(16, 8, 8_800_000, 1000, 2), (64, 2, 1_000_000, 10, 2)])
+
+
+@pytest.mark.parametrize("T,M,n_docs,k,Q", K1_RANGE_CASES)
+def test_bm25_pruned_kernel_equals_ranges_twin(cuda, T, M, n_docs, k, Q):
+    """One launch count a call; values, ids and touched bitwise equal to the
+    range-split twin at the kernel's R and to the dense twin."""
+    batch = [synth_pruned_blocks(T + q, n_terms=T, max_blocks=M, n_docs=n_docs, zipf_a=1.3)
+             for q in range(Q)]
+    args = _on(cuda, *[np.stack(p) for p in zip(*batch)])
+    before = bm25_pruned_topk.launches
+    got = bm25_pruned_topk(*args, *_F32, k=k, n_docs=n_docs)
+    assert bm25_pruned_topk.launches == before + 1
+    ranges = ref.bm25_pruned_ranges_ref(*args, *_F32, k=k, n_docs=n_docs,
+                                        range_docs=range_docs(T, k))
+    dense = ref.bm25_pruned_topk_ref(*args, *_F32, k=k, n_docs=n_docs)
+    assert all(_bits(g, r) and _bits(g, d) for g, r, d in zip(got, ranges, dense))
+
+
+RANGES_K = {"tie_edge": 6, "few_positive": 100, "short": 40, "synth": 10}
+
+
+def ranges_case(case, n_docs, R):
+    """(args, k), numpy arrays of a Q=3 batch cut into ranges of R docs:
+    "synth" blocks; "tie_edge", every posting one impact, so the k-th score
+    ties across the first range edge; "few_positive", fewer positive docs
+    than k, so zero-score ids fill the top k across ranges; "short", T·B < k
+    (θ = 0)."""
+    rng = np.random.default_rng(n_docs)
+    k = min(n_docs, RANGES_K[case])
+    if case == "synth":
+        batch = [synth_pruned_blocks(n_docs + q, n_terms=4, max_blocks=3, n_docs=n_docs,
+                                     block=16, zipf_a=1.3) for q in range(3)]
+        return [np.stack(p) for p in zip(*batch)], k
+    T, M, B = (2, 2, 16) if case == "short" else (2, 3, 128)
+    docs = np.full((3, T, M, B), n_docs, np.int32)
+    for q in range(3):
+        for t in range(T):
+            if case == "tie_edge":      # 12 docs about the first edge, the terms' disjoint
+                d = np.arange(R - 6 + t, min(n_docs, R + 6 - q), 2)
+            elif case == "few_positive":
+                d = rng.choice(n_docs, 2, replace=False)
+            else:
+                d = rng.choice(n_docs, min(n_docs, M * B), replace=False)
+            docs[q, t].reshape(-1)[:d.size] = d
+    live = docs < n_docs
+    tf = np.where(live, 1 if case == "tie_edge" else rng.integers(1, 9, docs.shape), 0)
+    dl = np.where(live, 12.0 if case == "tie_edge" else rng.uniform(5, 40, docs.shape), 1.0)
+    idf_q = np.ones((3, T)) if case == "tie_edge" else rng.uniform(0.5, 3.0, (3, T))
+    valid = live.any(-1)
+    ub = np.where(valid, 10.0, 0.0)
+    return [tf.astype(np.uint8), dl.astype(np.float32), docs, idf_q.astype(np.float32),
+            ub.astype(np.float32), valid], k
+
+
+@pytest.mark.parametrize("ranges,extra", [(1, 1), (3, 7)])
+@pytest.mark.parametrize("case", ["tie_edge", "few_positive"])
+def test_bm25_pruned_kernel_across_range_edges(cuda, case, ranges, extra):
+    """At n_docs R + 1 and 3R + 7 for the kernel's own R (the last range
+    not full, at R + 1 one doc): a k-th score tied across a range edge goes
+    to the lower id, and with fewer positive docs than k, which lie in any
+    range, the lowest zero-score ids fill the top k; bitwise equal to both
+    twins."""
+    R = range_docs(2, RANGES_K[case])
+    n_docs = ranges * R + extra
+    arrays, k = ranges_case(case, n_docs, R)
+    args = _on(cuda, *arrays)
+    got = bm25_pruned_topk(*args, *_F32, k=k, n_docs=n_docs)
+    split = ref.bm25_pruned_ranges_ref(*args, *_F32, k=k, n_docs=n_docs, range_docs=R)
+    dense = ref.bm25_pruned_topk_ref(*args, *_F32, k=k, n_docs=n_docs)
+    assert all(_bits(g, r) and _bits(g, d) for g, r, d in zip(got, split, dense))
+    vals, ids = got[0].cpu().numpy(), got[1].cpu().numpy()
+    if case == "tie_edge":                  # the k-th score ties with the next range's
+        assert (vals == vals[:, :1]).all() and (ids[:, -1] < R).all()
+        full = ref.bm25_pruned_topk_ref(*args, *_F32, k=k + 1, n_docs=n_docs)
+        assert (full[0][:, -1].cpu().numpy() == vals[:, -1]).all()
+        assert (full[1][:, -1].cpu().numpy() >= R).all()
+    else:               # the lowest zero-score ids fill the top k, the last range's too
+        pos = vals > 0
+        assert (pos.sum(1) < k).all() and (vals[:, -1] == 0).all()
+        for q in range(3):
+            zeros = ids[q][~pos[q]]
+            lowest = np.setdiff1d(np.arange(k + 4), ids[q][pos[q]])[:zeros.size]
+            assert np.array_equal(zeros, lowest)
+
+
+@pytest.mark.parametrize("T,B,k,n_docs,fits", [
+    (64, 128, 10, 1_000_000, True),       # T·B 8,192 at k 10
+    (16, 128, 1000, 8_800_000, True),     # 166 ranges × k 1,000 survivors
+    (65, 128, 10, 1_000_000, False),      # T·B 8,320: θ's sort does not fit
+    (64, 128, 10, 200_000_000, False),    # 64 terms × 3,622 ranges of counts
+])
+def test_bm25_pruned_plan_limits(cuda, T, B, k, n_docs, fits):
+    """What the card's K1 takes and refuses, before it allocates anything:
+    θ's shared memory grows with T·B, the scatter's with T × ranges."""
+    if fits:
+        R, P = bm25_pruned._plan(T, B, k, n_docs)
+        assert R == range_docs(T, k) and P == -(-n_docs // R)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            bm25_pruned._plan(T, B, k, n_docs)
 
 
 # The dense tier's width (D=768, k=10) at every N and Q; then widths that
@@ -327,6 +439,32 @@ def test_embedding_bag_kernel_equals_twin(cuda, B, L, D, dtype):
     assert got.shape == (B, D) and _bits(got, want)
     assert not got[0].any()
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 200])
+@pytest.mark.parametrize("D", [2, 3, 4, 10])
+@pytest.mark.parametrize("offset", ["row", "element"])
+def test_embedding_bag_kernel_on_unaligned_tables(cuda, offset, D, L, dtype):
+    """K6's vector widths on a table whose base is not 16-byte aligned (a
+    view one row or one element in), NaN and inf weights on pad slots."""
+    rng = np.random.default_rng(D * 1000 + L)
+    V, B = 3000, 67
+    skip = D if offset == "row" else 1
+    flat = torch.from_numpy(rng.standard_normal(V * D + skip).astype(np.float32))
+    table = flat.to(cuda, dtype)[skip:].view(V, D)
+    assert table.data_ptr() % 16 != 0 or D == 4 and offset == "row" and dtype == torch.float32
+    idx = rng.integers(0, V, (B, L)).astype(np.int32)
+    idx[rng.random((B, L)) < 0.3] = -1
+    w = rng.standard_normal((B, L)).astype(np.float32)
+    pads = np.flatnonzero(idx < 0)
+    w.reshape(-1)[pads[::2]] = np.nan
+    w.reshape(-1)[pads[1::2]] = np.inf
+    idx, w = _on(cuda, idx, w)
+    got = embedding_bag(table, idx, w)
+    want = ref.embedding_bag_ref(table, idx, w)
+    torch.cuda.synchronize()
+    assert got.shape == (B, D) and _bits(got, want) and bool(torch.isfinite(got).all())
 
 def test_kernels_refuse_wrong_dtypes(cuda):
     tf = torch.zeros(2, 2, 128, dtype=torch.int32, device=cuda)

@@ -22,6 +22,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bm25_block import bm25_block_scores
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, theta_lower_bound
 from repro_torch.kernels.topk import order_keys, topk
+from test_torch_cuda import ranges_case
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -328,6 +329,40 @@ def test_bm25_pruned_leading_q():
         jv, ji, jt = jops.bm25_pruned_topk(*args, *_F32, k=10, n_docs=900, interpret=True)
         assert_topk_close(gv[q], gi[q], jv, ji)
         assert int(gt[q]) == int(jt)
+
+
+RANGE = 64                          # range_docs of the range-split cases below
+
+
+def _ranges_case(case, n_docs):
+    """:func:`test_torch_cuda.ranges_case` at ``RANGE`` docs a range."""
+    return ranges_case(case, n_docs, RANGE)
+
+
+@pytest.mark.parametrize("n_docs", [RANGE - 1, RANGE, RANGE + 1, 3 * RANGE + 7])
+@pytest.mark.parametrize("case", ["synth", "tie_edge", "few_positive", "short"])
+def test_bm25_pruned_ranges_twin_equals_dense_twin(case, n_docs):
+    """The card's algorithm — per-range top k, then a merge — bitwise equal
+    to the twin's top k over the whole accumulator (values, ids, touched)."""
+    args, k = _ranges_case(case, n_docs)
+    args = _t(*args)
+    want = tref.bm25_pruned_topk_ref(*args, *_F32, k=k, n_docs=n_docs)
+    got = tref.bm25_pruned_ranges_ref(*args, *_F32, k=k, n_docs=n_docs, range_docs=RANGE)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g.numpy().view(np.uint32 if g.dtype == torch.float32 else np.int32),
+                              w.numpy().view(np.uint32 if w.dtype == torch.float32 else np.int32))
+    vals, ids = want[0].numpy(), want[1].numpy()
+    if case == "tie_edge" and n_docs > RANGE:   # the k-th score ties with the next range's
+        assert (vals == vals[:, :1]).all() and (ids[:, -1] < RANGE).all()
+        full = tref.bm25_pruned_topk_ref(*args, *_F32, k=k + 1, n_docs=n_docs)
+        assert (full[0][:, -1] == vals[:, -1]).all() and (full[1][:, -1] >= RANGE).all()
+    if case == "few_positive":                             # zero-score ids fill the top k
+        assert ((vals > 0).sum(1) < k).all() and (vals[:, -1] == 0).all()
+        if n_docs > RANGE:
+            assert (ids.max(1) >= RANGE).all()
+    if case == "short":                                    # θ = 0: nothing pruned
+        assert (want[2].numpy() == args[5].numpy().sum((1, 2))).all()
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
