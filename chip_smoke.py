@@ -9,6 +9,7 @@ NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
     python3 chip_smoke.py --topk-only     # phases 1, 2, then K2 and K4 alone (no ok line)
     python3 chip_smoke.py --k1-k6-only    # phases 1, 2, then K1 and K6 alone (no ok line)
+    python3 chip_smoke.py --k3-only       # phases 1, 2, then K3 alone (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -20,16 +21,23 @@ Phases (each raises on failure; the script then exits non-zero):
      blocks for Q=1 and Q=64, bitwise, and K1 against the dense plain path;
      per-kernel times with CUDA events beside the twin's, a library call's
      (timed in turns with the kernel: kernel, library, library, kernel) and
-     the least time the card could take; warm latency of the pruned +
-     kernels, dense + kernels and dense plain searchers, paired query by
-     query;
+     the least time the card could take. K3 twice: its reference-shaped
+     entry point (``bm25_block_scores``, dl given) and the main path's fused
+     one (``bm25_block_impacts``, the doc_len gather and the mask inside),
+     each in turns with its twin, the fused one also in turns with the
+     eager chain it replaced (clamp, int64 ids, the doc_len gather, a
+     ``bm25_block_scores`` launch, the mask). Then K1 past its old range
+     limit (64 terms over 200M docs, Q 1, seeded blocks), bitwise against
+     its twin; warm latency of the pruned + kernels, dense + kernels and
+     dense plain searchers, paired query by query;
   5. end to end through the gateway: one cold query, 20 warm queries and a
      64-query micro-batch on the pruned + kernels route (K1, which merges
      its ranges' survivors itself), the dense
      + kernels route (K3, K2) and the dense plain route (no kernel), every
      answer equal (ids, score bits) to the dense plain route's. The launch
      counters are set to 0 before each route and read after it: each route
-     must launch its kernels and no other;
+     must launch its kernels and no other, K3 (the fused entry point) once
+     a call;
   6. the partitioned fleet on the card: the same corpus split over
      ``FleetSpec(n_parts=4)`` with a dense tier of dim 768 (the width of the
      BERT-base dense retrievers indexed for MS MARCO passage), lazy
@@ -89,10 +97,15 @@ its library call, K4's own launch apart from K2's merge.
 
 ``--k1-k6-only`` runs phases 1-2 and then K1 and K6 alone at the main path's
 shapes on data made from a seed: K1 at Q 1 and 64 on ``synth_pruned_blocks``
-(T 16, M 64, B 128, 1M docs, k 10), K6 at fm's tower (262,144 × 39, D 10),
-fm's linear term (D 1) and dcn-v2's tower (262,144 × 26, D 16) on the
-streams' zipf ids; each held bitwise to its twin and timed in turns with it
-(K6 also beside ``F.embedding_bag``), K1's device time split by kernel.
+(T 16, M 64, B 128, 1M docs, k 10) and past its old range limit, K6 at fm's
+tower (262,144 × 39, D 10), fm's linear term (D 1) and dcn-v2's tower
+(262,144 × 26, D 16) on the streams' zipf ids; each held bitwise to its
+twin and timed in turns with it (K6 also beside ``F.embedding_bag``), K1's
+device time split by kernel.
+
+``--k3-only`` runs phases 1-2 and then K3's two entry points and the eager
+chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
+``doc_len`` table, as phase 4 runs them.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -198,18 +211,10 @@ def kernel_phase(searcher, queries, torch, bm25, ref, kern):
         idf_q = state.idf[tid] * w
         dl = state.doc_len[torch.clamp(docs, max=n_docs).long()]
         params = state.params
-        postings = docs.numel()
 
-        # K3
-        k3 = lambda: kern["K3"](tf, dl, idf_q, *params)              # noqa: E731
-        k3_twin = lambda: ref.bm25_block_scores_ref(tf, dl, idf_q, *params)  # noqa: E731
-        got, want = k3(), k3_twin()
-        torch.cuda.synchronize()
-        require(bits_equal(got, want), f"K3 != twin at Q={Q}")
-        rows.setdefault("K3", {})[Q] = dict(
-            err=max_abs_err(got, want), ms=cuda_ms(k3), plain_ms=cuda_ms(k3_twin),
-            library_ms=None,
-            bound=bound_ms(postings * 9 + idf_q.numel() * 4, postings * 7))
+        # K3, both entry points
+        rows.setdefault("K3", {})[Q] = k3_cases(kern["K3"], ref, torch, tf, docs, valid,
+                                                state.doc_len, idf_q, params, n_docs)
 
         # K2, over the dense accumulator of these queries
         acc = bm25.score_dense(state, t, w, max_blocks=MAX_BLOCKS)
@@ -230,16 +235,83 @@ def kernel_phase(searcher, queries, torch, bm25, ref, kern):
         touched = int(gt.sum())
         rows.setdefault("K1", {})[Q] = dict(
             err=max_abs_err(gv, wv), ms=cuda_ms(k1), plain_ms=cuda_ms(k1_twin),
-            library_ms=None, touched=touched, valid=int(valid.sum()),
+            graph_ms=graph_ms(k1), library_ms=None, touched=touched, valid=int(valid.sum()),
             bound=k1_bound(Q, touched, docs.shape[-1]))
-        for name in ("K3", "K2", "K1"):
+        print_k3("4", Q, rows["K3"][Q])
+        for name in ("K2", "K1"):
             r = rows[name][Q]
-            print(f"[4] {name} Q={Q}: bitwise == twin; kernel {r['ms']:.4f} ms, twin "
+            graph = f", in a CUDA graph {r['graph_ms']:.4f} ms" if "graph_ms" in r else ""
+            print(f"[4] {name} Q={Q}: bitwise == twin; kernel {r['ms']:.4f} ms{graph}, twin "
                   f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
                   f"{r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
         print(f"[4] K1 Q={Q}: touched {rows['K1'][Q]['touched']} of "
               f"{rows['K1'][Q]['valid']} valid blocks; top-k == dense plain path", flush=True)
     return rows
+
+
+def k3_cases(k3, ref, torch, tf, docs, valid, doc_len, idf_q, params, n_docs,
+             reps=20) -> dict:
+    """K3's fused entry point ``k3`` (the main path's) and its
+    reference-shaped one on one batch of gathered blocks, each bitwise
+    against its twin and timed in turns with it; the fused one also in
+    turns with the eager chain it replaced — the steps the parent tree's
+    ``bm25_impacts`` ran around a ``bm25_block_scores`` launch — whose bits
+    it equals. Each is also timed inside a CUDA graph (``graph_ms``: the
+    device's time without the host's launch cost, which back-to-back calls
+    of a ~10 µs kernel measure instead). Returns the fused call's row, the
+    other's under "scores"."""
+    from repro_torch.kernels.bm25_block import bm25_block_scores
+    dl = doc_len[torch.clamp(docs, max=n_docs).long()]
+    fused = lambda: k3(tf, docs, valid, doc_len, idf_q, *params, n_docs)   # noqa: E731
+    calls = {
+        "scores": (lambda: bm25_block_scores(tf, dl, idf_q, *params),
+                   lambda: ref.bm25_block_scores_ref(tf, dl, idf_q, *params)),
+        "impacts": (fused, lambda: ref.bm25_block_impacts_ref(tf, docs, valid, doc_len, idf_q,
+                                                              *params, n_docs)),
+    }
+
+    def chain():
+        d = doc_len[torch.clamp(docs, max=n_docs).long()]
+        imp = bm25_block_scores(tf, d, idf_q, *params)
+        return torch.where(valid & ~(docs >= n_docs) & (tf > 0), imp, 0.0)
+
+    out = {}
+    for name, (fn, twin) in calls.items():
+        got, want = fn(), twin()
+        torch.cuda.synchronize()
+        require(bits_equal(got, want), f"K3 {name} != twin at Q={tf.shape[0]}")
+        ms, plain_ms = paired_ms(fn, twin, reps)
+        out[name] = dict(err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms, library_ms=None,
+                         graph_ms=graph_ms(fn, reps))
+    require(bits_equal(fused(), chain()), "K3 impacts != the eager chain")
+    out["impacts"]["turns_with_chain"] = paired_ms(fused, chain, reps)
+    out["impacts"]["eager_chain_graph_ms"] = graph_ms(chain, reps)
+    postings, B = tf.numel(), tf.shape[-1]
+    out["scores"]["bound"] = bound_ms(postings * 9 + idf_q.numel() * 4, postings * 7)
+    # the fused call reads tf and docs of valid rows, a valid byte a row, the
+    # idf and each distinct live doc's doc_len, and writes every posting
+    live = valid & (docs < n_docs) & (tf > 0)
+    n_live, distinct = int(live.sum()), int(torch.unique(docs[live]).numel())
+    out["impacts"]["bound"] = bound_ms(int(valid.sum()) * B * 5 + postings * 4 + valid.numel()
+                                       + idf_q.numel() * 4 + distinct * 4, n_live * 7)
+    Q, T, M, _ = tf.shape
+    out["impacts"]["shape"] = out["scores"]["shape"] = (
+        f"Q={Q}, T={T}, M={M}, B={B}, n_docs={n_docs}; {int(valid.sum())} valid rows of "
+        f"{valid.numel()}, {n_live} live postings, {distinct} distinct docs")
+    out["impacts"]["scores"] = out.pop("scores")
+    return out["impacts"]
+
+
+def print_k3(tag, Q, r) -> None:
+    s = r["scores"]
+    print(f"[{tag}] K3 Q={Q} ({r['shape']}): both entry points bitwise == twin; "
+          f"bm25_block_impacts {r['ms']:.4f} ms, in a CUDA graph {r['graph_ms']:.4f} ms "
+          f"(twin {r['plain_ms']:.4f}, bound {r['bound'][0]:.6f} ms, {r['bound'][1]}); in "
+          f"turns with the eager chain {r['turns_with_chain'][0]:.4f} / "
+          f"{r['turns_with_chain'][1]:.4f} ms (chain in a CUDA graph "
+          f"{r['eager_chain_graph_ms']:.4f}); bm25_block_scores {s['ms']:.4f} ms, in a CUDA "
+          f"graph {s['graph_ms']:.4f} ms (twin {s['plain_ms']:.4f}, bound {s['bound'][0]:.6f} "
+          f"ms, {s['bound'][1]})", flush=True)
 
 
 def k2_case(k2, ref, torch, s, k, what, reps=20) -> dict:
@@ -281,7 +353,7 @@ def case_entry(r) -> dict:
     """One shape of a kernel's entry in the kernels line."""
     return {"ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "max_abs_err": r["err"],
-            "shape": r["shape"]}
+            "shape": r["shape"], **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {})}
 
 
 # --topk-only: K2 and K4 at the main path's shapes on data made from a seed
@@ -352,11 +424,49 @@ def k1_blocks(torch, Q, device, seed=0):
     return tuple(torch.from_numpy(np.stack(p)).to(device) for p in zip(*parts))
 
 
-def k1_bound(Q, touched, B) -> tuple[float, str]:
+# K1 past its old range limit: (T + 2) × ranges above ~58,000 was refused
+K1_WIDE = dict(T=64, M=8, n_docs=200_000_000, k=K)
+
+
+def k1_wide_check(kern, ref, torch, device="cuda", seed=64) -> dict:
+    """K1 at Q 1 on ``synth_pruned_blocks`` of 64 terms over 200M docs —
+    3,622 ranges, more (term, range) counts than a block's shared memory
+    holds — bitwise against its twin (a 0.8 GB dense accumulator), then
+    timed in turns with it."""
+    from repro_torch.data.corpus import synth_pruned_blocks
+    from repro_torch.kernels.bm25_pruned import range_docs
+    c = K1_WIDE
+    arrays = synth_pruned_blocks(seed, n_terms=c["T"], max_blocks=c["M"], n_docs=c["n_docs"])
+    args = (*(torch.from_numpy(a[None]).to(device) for a in arrays), *BM25_PARAMS)
+    del arrays
+    k1 = lambda: kern["K1"](*args, k=c["k"], n_docs=c["n_docs"])                # noqa: E731
+    twin = lambda: ref.bm25_pruned_topk_ref(*args, k=c["k"], n_docs=c["n_docs"])  # noqa: E731
+    (gv, gi, gt), (wv, wi, wt) = k1(), twin()
+    torch.cuda.synchronize()
+    require(bits_equal(gv, wv) and bits_equal(gi, wi) and bits_equal(gt, wt),
+            "K1 past the old range limit != twin")
+    ranges = -(-c["n_docs"] // range_docs(c["T"], c["k"]))
+    ms, plain_ms = paired_ms(k1, twin, reps=3)
+    touched = int(gt.sum())
+    r = dict(err=max_abs_err(gv, wv), ms=ms, plain_ms=plain_ms, library_ms=None,
+             graph_ms=graph_ms(k1, reps=5),
+             bound=k1_bound(1, touched, args[0].shape[-1], T=c["T"], M=c["M"], k=c["k"]),
+             shape=f"Q=1, T={c['T']}, M={c['M']}, B=128, n_docs={c['n_docs']}, k={c['k']}; "
+                   f"{ranges} ranges, (T + 2) x ranges = {(c['T'] + 2) * ranges}; touched "
+                   f"{touched} of {int(args[5].sum())} valid blocks")
+    print(f"[4] K1 past the old range limit ({r['shape']}): bitwise == twin; kernel "
+          f"{ms:.4f} ms, in a CUDA graph {r['graph_ms']:.4f} ms, twin {plain_ms:.3f} ms, bound "
+          f"{r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return r
+
+
+def k1_bound(Q, touched, B, T=MAX_TERMS, M=MAX_BLOCKS, k=K) -> tuple[float, str]:
     """K1's least time: the kept postings (tf, dl, doc: 9 B each), the
     per-block inputs and the output, each moved once."""
     kept = touched * B
-    return bound_ms(kept * 9 + Q * MAX_TERMS * (4 + MAX_BLOCKS * 5) + Q * (K * 8 + 4), kept * 8)
+    return bound_ms(kept * 9 + Q * T * (4 + M * 5) + Q * (k * 8 + 4), kept * 8)
 
 
 def device_split(fn, calls: int = 5) -> dict:
@@ -394,14 +504,17 @@ def k1_k6_phase(kern, ref, torch, device="cuda") -> dict:
         touched = int(gt.sum())
         r = out[f"K1 Q={Q}"] = dict(
             err=max_abs_err(gv, wv), ms=ms, plain_ms=plain_ms, library_ms=None,
+            graph_ms=graph_ms(k1),
             bound=k1_bound(Q, touched, args[0].shape[-1]),
             shape=f"Q={Q}, T={K1_ONLY['T']}, M={K1_ONLY['M']}, B=128, n_docs={n}, k={k}; "
                   f"touched {touched} of {int(args[5].sum())} valid blocks")
         r["split_us"] = device_split(k1)
-        print(f"[k] K1 at {r['shape']}: bitwise == twin; kernel {ms:.4f} ms, twin "
+        print(f"[k] K1 at {r['shape']}: bitwise == twin; kernel {ms:.4f} ms, in a CUDA graph "
+              f"{r['graph_ms']:.4f} ms, twin "
               f"{plain_ms:.3f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]}); device µs a "
               f"call by kernel {json.dumps(r['split_us'])}", flush=True)
         del args
+    out["K1 past the old range limit"] = k1_wide_check(kern, ref, torch, device)
     for label, arch, table_name in K6_SHAPES:
         cfg = get_arch(arch).full_config()
         D = 1 if table_name == "linear" else cfg.embed_dim
@@ -420,6 +533,22 @@ def k1_k6_phase(kern, ref, torch, device="cuda") -> dict:
               flush=True)
         del table, ids
         torch.cuda.empty_cache()
+    return out
+
+
+def k3_phase(kern, ref, torch, device="cuda", seed=0) -> dict:
+    """K3's two entry points at Q 1 and 64 on ``synth_pruned_blocks`` (T 16,
+    M 64, B 128, 1M docs) with a seeded doc_len table, as phase 4 runs
+    them on the index's blocks."""
+    out = {}
+    n = K1_ONLY["n_docs"]
+    g = torch.Generator(device).manual_seed(seed)
+    doc_len = torch.randint(5, 48, (n + 1,), generator=g, device=device).float()
+    for Q in K1_ONLY["queries"]:
+        tf, _, docs, idf_q, _, valid = k1_blocks(torch, Q, device)
+        r = out[f"K3 Q={Q}"] = k3_cases(kern["K3"], ref, torch, tf, docs, valid[..., None],
+                                        doc_len, idf_q, BM25_PARAMS, n)
+        print_k3("3", Q, r)
     return out
 
 
@@ -501,6 +630,9 @@ def gateway_phase(app, queries, torch, kern):
             require((n > 0) == (name in expected),
                     f"{route}: kernel {name} launched {n} times, expected "
                     f"{'some' if name in expected else 'none'}")
+        if "K3" in expected:
+            require(launches[route]["K3"] == len(got),
+                    f"{route}: K3 launched {launches[route]['K3']} times in {len(got)} calls")
         print(f"[5] {route}: launches {launches[route]}", flush=True)
     plain = answers["/search-plain"]
     for route in ("/search", "/search-dense-kernels"):
@@ -1587,6 +1719,9 @@ def main() -> int:
     ap.add_argument("--k1-k6-only", action="store_true",
                     help="phases 1, 2 and K1 and K6 at the main path's shapes on seeded data "
                          "(prints no ok line)")
+    ap.add_argument("--k3-only", action="store_true",
+                    help="phases 1, 2 and K3's two entry points at the main path's shapes on "
+                         "seeded data (prints no ok line)")
     ap.add_argument("--recsys-only", action="store_true",
                     help="phases 1, 2 and 8 only (a shake-out of the recsys path; prints no "
                          "ok line)")
@@ -1601,7 +1736,7 @@ def main() -> int:
         from repro_torch.core.runtime import RuntimeConfig
         from repro_torch.data.corpus import synth_corpus, synth_queries
         from repro_torch.kernels import backend, ref
-        from repro_torch.kernels.bm25_block import bm25_block_scores
+        from repro_torch.kernels.bm25_block import bm25_block_impacts
         from repro_torch.kernels.bm25_pruned import bm25_pruned_topk
         from repro_torch.kernels.dot_topk import dot_topk_batch
         from repro_torch.kernels.embedding_bag import embedding_bag
@@ -1616,7 +1751,7 @@ def main() -> int:
         return 2
     require(not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                     for m in sys.modules), "JAX or the JAX package was imported")
-    kern = {"K3": bm25_block_scores, "K2": topk, "K1": bm25_pruned_topk, "K4": dot_topk_batch,
+    kern = {"K3": bm25_block_impacts, "K2": topk, "K1": bm25_pruned_topk, "K4": dot_topk_batch,
             "K5": flash_attention, "K6": embedding_bag}
     t_start = time.perf_counter()
 
@@ -1659,6 +1794,17 @@ def main() -> int:
         print(smi, flush=True)
         print("chip_smoke: --k1-k6-only, a partial run", flush=True)
         return 0
+    if args.k3_only:
+        t0 = time.perf_counter()
+        cases = k3_phase(kern, ref, torch)
+        print(f"[3] K3 checked and timed in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"k3_only": {name: {**case_entry(r), "eager_chain_turns": r[
+            "turns_with_chain"], "eager_chain_graph_ms": r["eager_chain_graph_ms"],
+            "bm25_block_scores": case_entry(r["scores"])}
+            for name, r in cases.items()}}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --k3-only, a partial run", flush=True)
+        return 0
     if args.recsys_only:
         results, rs_launches, err = recsys_phase(kern, ref, torch)
         print(json.dumps({"kernels": [k6_line(results, rs_launches, err)]}), flush=True)
@@ -1690,6 +1836,7 @@ def main() -> int:
 
     # 4. kernels against twins
     rows = kernel_phase(searcher, queries, torch, bm25, ref, kern)
+    k1_wide = k1_wide_check(kern, ref, torch)
     latency_phase(searcher, queries, torch, {
         "pruned+kernels": pruned_cfg,
         "dense+kernels": SearchConfig(use_kernel=True, use_topk_kernel=True),
@@ -1725,7 +1872,7 @@ def main() -> int:
 
     Q = len(queries)
     meta = {
-        "K3": ("bm25_block_scores", "src/repro_torch/kernels/csrc/bm25_block.cu",
+        "K3": ("bm25_block_impacts", "src/repro_torch/kernels/csrc/bm25_block.cu",
                "src/repro/kernels/bm25_block.py:61"),
         "K2": ("topk", "src/repro_torch/kernels/csrc/topk.cu", "src/repro/kernels/topk.py:70"),
         "K1": ("bm25_pruned_topk", "src/repro_torch/kernels/csrc/bm25_pruned.cu",
@@ -1740,6 +1887,17 @@ def main() -> int:
          "bound_by": rows[n][Q]["bound"][1], "library_ms": rows[n][Q]["library_ms"],
          "shape": f"Q={Q}, T={MAX_TERMS}, M={MAX_BLOCKS}, B=128, n_docs={args.docs}"}
         for n in ("K3", "K2", "K1")]}
+    k3 = rows["K3"][Q]
+    line["kernels"][0].update(
+        eager_chain_ms=k3["turns_with_chain"][1], eager_chain_graph_ms=k3["eager_chain_graph_ms"],
+        entry_points={"bm25_block_impacts": case_entry(k3),
+                      "bm25_block_scores": case_entry(k3["scores"])},
+        shapes={f"Q={q}": {"bm25_block_impacts": case_entry(rows["K3"][q]),
+                           "bm25_block_scores": case_entry(rows["K3"][q]["scores"])}
+                for q in sorted(rows["K3"])})
+    line["kernels"][2]["shapes"] = {f"Q={q}": {key: rows["K1"][q][key] for key in (
+        "ms", "graph_ms", "plain_ms", "err")} for q in sorted(rows["K1"])}
+    line["kernels"][2]["shapes"]["past the old range limit"] = case_entry(k1_wide)
     line["kernels"][1]["shapes"] = {"search": case_entry(rows["K2"][Q]),
                                     "bert4rec vocabulary": case_entry(results["bert4rec"]["k2_vocab"])}
     line["kernels"].append({

@@ -43,6 +43,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "bm25_block": {
         "bm25_block_scores_launch": (_I, [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _F, _P]),
+        "bm25_block_impacts_launch": (_I, [_P] * 6 + [_LL, _I, _I, _I, _F, _F, _F, _P]),
     },
     "topk": {
         "topk_smem_bytes": (_LL, [_I, _I]),
@@ -50,9 +51,8 @@ SIGNATURES = {
     },
     "bm25_pruned": {
         "bm25_pruned_theta_smem_bytes": (_LL, [_I] * 3),
-        "bm25_pruned_scatter_smem_bytes": (_LL, [_I, _I]),
         "bm25_pruned_range_docs": (_I, [_I, _I]),
-        "bm25_pruned_launch": (_I, [_P] * 17 + [_I] * 7 + [_F] * 4 + [_P]),
+        "bm25_pruned_launch": (_I, [_P] * 17 + [_I] * 8 + [_F] * 4 + [_P]),
     },
     "dot_topk": {
         "dot_topk_tiles_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P]),

@@ -19,7 +19,11 @@ term)) bucket the kept postings by range of R docs and term;
 bucket's impacts in shared memory, term by term, selects the range's top
 k, and the query's last range block to finish merges the ranges'
 survivors, which lie in id order. The bucket, (Q, T·M·B) entries of 8 B,
-is the largest scratch in device memory.
+is the largest scratch in device memory. Where a query's T·P (term, range)
+counts do not fit in one block's shared memory (64 terms over ~50M docs
+and more), a fifth launch, ``pruned_starts_kernel``, scans them into the
+bucket's starts in device memory and the scatter takes its cursors from
+there.
 :func:`repro_torch.kernels.ref.bm25_pruned_ranges_ref` is that algorithm
 in plain PyTorch. The helpers below are the twin's θ and bounds, in the
 same arithmetic order as the kernels.
@@ -38,6 +42,10 @@ from repro_torch.kernels import backend, ref
 # impact sums.
 PRUNE_SAFETY = 1.0 + 1e-4
 MAX_SMEM = 227 * 1024
+# Shared memory the count and scatter kernels may give their (term, range)
+# counts or cursors; past it they go to device memory. All a block can
+# have; the tests lower it to drive the device-memory paths at small sizes.
+SMEM_BUDGET = MAX_SMEM
 
 
 def theta_lower_bound(d: torch.Tensor, v: torch.Tensor, k: int,
@@ -132,8 +140,8 @@ def bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
             *(x.data_ptr() for x in (tf, dl, docs, idf_q, ub, valid, kept, term_start, counts,
                                      bucket, starts, surv_vals, surv_ids, done, touched, vals,
                                      ids)),
-            Q, T, M, B, k, n_docs, R, backend.f32(k1), backend.f32(b), backend.f32(avgdl),
-            backend.f32(PRUNE_SAFETY), backend.stream(tf))
+            Q, T, M, B, k, n_docs, R, SMEM_BUDGET, backend.f32(k1), backend.f32(b),
+            backend.f32(avgdl), backend.f32(PRUNE_SAFETY), backend.stream(tf))
     backend.check(lib, err, "bm25_pruned_launch")
     bm25_pruned_topk.launches += 1
     if single:
@@ -150,7 +158,8 @@ def range_docs(T: int, k: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _plan(T: int, B: int, k: int, n_docs: int) -> tuple[int, int]:
-    """(R, P) of a call, after checking that its kernels fit in shared memory."""
+    """(R, P) of a call, after checking that θ's kernel and one range fit in
+    shared memory."""
     lib = backend.library("bm25_pruned")
     R = range_docs(T, k)
     if R < 32:
@@ -159,10 +168,6 @@ def _plan(T: int, B: int, k: int, n_docs: int) -> tuple[int, int]:
     theta = lib.bm25_pruned_theta_smem_bytes(T, B, k)
     if theta > MAX_SMEM:
         raise ValueError(f"T·B = {T * B} first-block postings need {theta} B of shared memory")
-    scatter = lib.bm25_pruned_scatter_smem_bytes(T, P)
-    if scatter > MAX_SMEM:
-        raise ValueError(f"{T} terms × {P} ranges of {R} docs need {scatter} B of shared "
-                         f"memory")
     return R, P
 
 

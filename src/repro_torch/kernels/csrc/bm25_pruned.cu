@@ -34,6 +34,14 @@
 //     in term order: the first kernel counts each term's postings a range,
 //     the second works out where each (range, term) begins and scatters
 //     (doc - range start, impact) there, 8 B an entry. Impacts as in step 1.
+//     Where the T*P counts do not fit in one block's shared memory (64 terms
+//     over ~50M docs and more), the count kernel's P-int histogram goes to
+//     device memory if it too does not fit, pruned_starts_kernel (one block
+//     a query) scans the counts into the (range, term) starts, and the
+//     scatter takes its term's P cursors from there, in shared memory when
+//     they fit, else as integer atomics in device memory. The order of the
+//     entries inside one (range, term) bucket reaches no sum: a doc occurs
+//     once per term, and step 5 adds term by term.
 //
 // pruned_range_kernel, one block per (query, range): block (q, p) owns docs
 // [p*R, min((p + 1)*R, n_docs)) as R floats in shared memory.
@@ -500,24 +508,49 @@ __device__ __forceinline__ void walk_term(const uint8_t* tfq, const int* dq, con
 }
 
 // Block q*T + t: how many of term t's kept, live, non-zero-tf postings of
-// query q fall in each range: counts[(q*T + t)*P + p].
+// query q fall in each range: counts[(q*T + t)*P + p]. SMEM: the histogram
+// in shared memory (P ints), else integer atomics on counts itself.
+template <bool SMEM>
 __global__ void __launch_bounds__(BUCKET_THREADS)
 pruned_count_kernel(const uint8_t* __restrict__ tf, const int* __restrict__ docs,
                     const int* __restrict__ kept, const int* __restrict__ term_start,
                     int* __restrict__ counts, int T, int M, int B, int n_docs, int R, int P) {
-  extern __shared__ int hist[];                  // P
+  extern __shared__ int hist_smem[];             // P, when SMEM
   const long long q = blockIdx.x / T;
   const int t = (int)(blockIdx.x - q * T);
   const long long PB = (long long)T * M * B;
   const int* ts = term_start + q * (T + 1);
+  int* row = counts + ((long long)q * T + t) * P;
+  int* hist = SMEM ? hist_smem : row;
   for (int p = threadIdx.x; p < P; p += BUCKET_THREADS) hist[p] = 0;
   __syncthreads();
   const float inv_r = 1.0f / (float)R;
   walk_term(tf + q * PB, docs + q * PB, kept + q * T * M, ts[t], ts[t + 1], B, n_docs,
             [&](int d, long long) { atomicAdd(&hist[range_of(d, R, inv_r)], 1); });
-  __syncthreads();
-  for (int p = threadIdx.x; p < P; p += BUCKET_THREADS)
-    counts[((long long)q * T + t) * P + p] = hist[p];
+  if (SMEM) {
+    __syncthreads();
+    for (int p = threadIdx.x; p < P; p += BUCKET_THREADS) row[p] = hist[p];
+  }
+}
+
+// Term t's kept, live, non-zero-tf postings of query q into the bucket, each
+// (doc - p*R, impact) at the cursor cur[p] of its range p (an atomicAdd).
+__device__ __forceinline__ void scatter_term(const uint8_t* tf, const float* dl, const int* docs,
+                                             const float* idf_q, const int* kept,
+                                             const int* term_start, uint2* bucket, int* cur,
+                                             long long q, int t, int T, int M, int B, int n_docs,
+                                             int R, float k1, float b, float avgdl) {
+  const long long PB = (long long)T * M * B;
+  const float inv_r = 1.0f / (float)R, omb = 1.0f - b, idf = idf_q[q * T + t];
+  const uint8_t* tfq = tf + q * PB;
+  const float* dlq = dl + q * PB;
+  uint2* bq = bucket + q * PB;
+  walk_term(tfq, docs + q * PB, kept + q * T * M, term_start[q * (T + 1) + t],
+            term_start[q * (T + 1) + t + 1], B, n_docs, [&](int d, long long at) {
+              const float imp = bm25_impact((float)tfq[at], dlq[at], idf, k1, b, omb, avgdl);
+              const int p = range_of(d, R, inv_r);
+              bq[atomicAdd(&cur[p], 1)] = make_uint2((unsigned)(d - p * R), __float_as_uint(imp));
+            });
 }
 
 // Block q*T + t: term t's postings of query q into the bucket, grouped by
@@ -538,7 +571,6 @@ pruned_scatter_kernel(const uint8_t* __restrict__ tf, const float* __restrict__ 
   int* cur = base + P + 1;                       // P: this term's cursors
   const long long q = blockIdx.x / T;
   const int t = (int)(blockIdx.x - q * T);
-  const long long PB = (long long)T * M * B;
   const int PT = P * T;
   for (int i = threadIdx.x; i < PT; i += BUCKET_THREADS) c[i] = counts[q * PT + i];
   __syncthreads();
@@ -565,16 +597,88 @@ pruned_scatter_kernel(const uint8_t* __restrict__ tf, const float* __restrict__ 
     if (threadIdx.x == 0) st[PT] = base[P];
   }
   __syncthreads();
-  const float inv_r = 1.0f / (float)R, omb = 1.0f - b, idf = idf_q[q * T + t];
-  const uint8_t* tfq = tf + q * PB;
-  const float* dlq = dl + q * PB;
-  uint2* bq = bucket + q * PB;
-  walk_term(tfq, docs + q * PB, kept + q * T * M, term_start[q * (T + 1) + t],
-            term_start[q * (T + 1) + t + 1], B, n_docs, [&](int d, long long at) {
-              const float imp = bm25_impact((float)tfq[at], dlq[at], idf, k1, b, omb, avgdl);
-              const int p = range_of(d, R, inv_r);
-              bq[atomicAdd(&cur[p], 1)] = make_uint2((unsigned)(d - p * R), __float_as_uint(imp));
-            });
+  scatter_term(tf, dl, docs, idf_q, kept, term_start, bucket, cur, q, t, T, M, B, n_docs, R, k1,
+               b, avgdl);
+}
+
+// Block q, where the scatter cannot hold query q's T*P counts: starts[q*(P*T
+// + 1) + p*T + t] = the postings of the ranges before p plus those of the
+// terms before t in range p, the total at P*T, as pruned_scatter_kernel
+// computes them; the same start also replaces counts[(q*T + t)*P + p], as
+// the scatter's cursor. A thread owns one range p of each round of
+// BUCKET_THREADS ranges: its T counts (reads coalesced across threads), a
+// block-wide exclusive scan of the ranges' totals, then its starts.
+__global__ void __launch_bounds__(BUCKET_THREADS)
+pruned_starts_kernel(int* __restrict__ counts, int* __restrict__ starts, int T, int P) {
+  __shared__ int wsum[BUCKET_THREADS / 32];
+  __shared__ int carry;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long q = blockIdx.x;
+  int* c = counts + q * T * (long long)P;
+  int* st = starts + q * ((long long)P * T + 1);
+  if (tid == 0) carry = 0;
+  for (int p0 = 0; p0 < P; p0 += BUCKET_THREADS) {
+    const int p = p0 + tid;
+    int total = 0;
+    if (p < P)
+      for (int t = 0; t < T; ++t) total += c[(long long)t * P + p];
+    int incl = total;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(SELECT_FULL, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();                             // wsum written, carry set
+    if (warp == 0) {
+      int w = lane < BUCKET_THREADS / 32 ? wsum[lane] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(SELECT_FULL, w, off);
+        if (lane >= off) w += v;
+      }
+      if (lane < BUCKET_THREADS / 32) wsum[lane] = w;
+    }
+    __syncthreads();
+    if (p < P) {
+      int s = carry + (warp ? wsum[warp - 1] : 0) + incl - total;
+      for (int t = 0; t < T; ++t) {
+        const long long at = (long long)t * P + p;
+        const int n = c[at];
+        st[(long long)p * T + t] = s;
+        c[at] = s;
+        s += n;
+      }
+    }
+    __syncthreads();                             // carry and wsum read
+    if (tid == 0) carry += wsum[BUCKET_THREADS / 32 - 1];
+    __syncthreads();
+  }
+  if (tid == 0) st[(long long)P * T] = carry;
+}
+
+// Block q*T + t, after pruned_starts_kernel: term t's postings of query q
+// into the bucket, as pruned_scatter_kernel puts them, from the cursors
+// counts[(q*T + t)*P + p]. SMEM: the P cursors copied to shared memory, else
+// integer atomics on counts itself.
+template <bool SMEM>
+__global__ void __launch_bounds__(BUCKET_THREADS)
+pruned_scatter_wide_kernel(const uint8_t* __restrict__ tf, const float* __restrict__ dl,
+                           const int* __restrict__ docs, const float* __restrict__ idf_q,
+                           const int* __restrict__ kept, const int* __restrict__ term_start,
+                           int* __restrict__ counts, uint2* __restrict__ bucket, int T, int M,
+                           int B, int n_docs, int R, int P, float k1, float b, float avgdl) {
+  extern __shared__ int cur_smem[];              // P, when SMEM
+  const long long q = blockIdx.x / T;
+  const int t = (int)(blockIdx.x - q * T);
+  int* row = counts + ((long long)q * T + t) * P;
+  int* cur = SMEM ? cur_smem : row;
+  if (SMEM) {
+    for (int p = threadIdx.x; p < P; p += BUCKET_THREADS) cur_smem[p] = row[p];
+    __syncthreads();
+  }
+  scatter_term(tf, dl, docs, idf_q, kept, term_start, bucket, cur, q, t, T, M, B, n_docs, R, k1,
+               b, avgdl);
 }
 
 // Dynamic shared memory of a range block that owns R docs.
@@ -802,10 +906,8 @@ REPRO_EXPORT long long bm25_pruned_theta_smem_bytes(int T, int B, int k) {
   return theta_smem(T, B, k) + THETA_STATIC_SMEM;
 }
 
-// Shared memory the scatter kernel needs for T terms and P ranges.
-REPRO_EXPORT long long bm25_pruned_scatter_smem_bytes(int T, int P) {
-  return 4LL * ((long long)T * P + 2LL * P + 1);
-}
+// Shared memory pruned_scatter_kernel needs for T terms and P ranges.
+static long long scatter_smem(int T, int P) { return 4LL * ((long long)T * P + 2LL * P + 1); }
 
 // Docs a range block owns: the most that fit in one block's shared memory
 // beside T term starts and k survivors, a multiple of 32 (0 if none fit).
@@ -819,8 +921,10 @@ REPRO_EXPORT int bm25_pruned_range_docs(int T, int k) {
 // static shared memory: set once.
 static cudaError_t allow_smem() {
   static const cudaError_t err = [] {
-    const void* kernels[] = {(const void*)pruned_theta_kernel, (const void*)pruned_count_kernel,
+    const void* kernels[] = {(const void*)pruned_theta_kernel,
+                             (const void*)pruned_count_kernel<true>,
                              (const void*)pruned_scatter_kernel,
+                             (const void*)pruned_scatter_wide_kernel<true>,
                              (const void*)pruned_range_kernel};
     for (const void* f : kernels) {
       cudaFuncAttributes a;
@@ -838,17 +942,21 @@ static cudaError_t allow_smem() {
 // Scratch: kept (Q, T*M) i32, term_start (Q, T + 1) i32, counts (Q, T, P)
 // i32, bucket (Q, T*M*B) uint2, starts (Q, P*T + 1) i32, survivors (Q, P*k)
 // f32 and i32, done (Q,) i32. Outputs: touched (Q,) i32, out_vals / out_ids
-// (Q, k). R docs a range, P = ceil(n_docs / R).
+// (Q, k). R docs a range, P = ceil(n_docs / R). The count and scatter
+// kernels keep their counts or cursors in shared memory only where they
+// take at most smem_budget bytes (the wrapper passes all a block can have).
 REPRO_EXPORT int bm25_pruned_launch(const void* tf, const void* dl, const void* docs,
                                     const void* idf_q, const void* ub, const void* valid,
                                     void* kept, void* term_start, void* counts, void* bucket,
                                     void* starts, void* surv_vals, void* surv_ids, void* done,
                                     void* touched, void* out_vals, void* out_ids, int Q, int T,
-                                    int M, int B, int k, int n_docs, int R, float k1, float b,
-                                    float avgdl, float safety, void* stream) {
+                                    int M, int B, int k, int n_docs, int R, int smem_budget,
+                                    float k1, float b, float avgdl, float safety,
+                                    void* stream) {
   if (Q <= 0) return 0;
+  if (R <= 0 || R % 32 != 0 || k <= 0 || n_docs <= 0) return (int)cudaErrorInvalidValue;
   const int P = (n_docs + R - 1) / R;
-  if (R <= 0 || R % 32 != 0 || k <= 0 || n_docs <= 0 || (long long)P * k > INT_MAX)
+  if ((long long)P * k > INT_MAX || (long long)P * T >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = allow_smem();
   if (e != cudaSuccess) return (int)e;
@@ -858,13 +966,35 @@ REPRO_EXPORT int bm25_pruned_launch(const void* tf, const void* dl, const void* 
       (const uint8_t*)tf, (const float*)dl, (const int*)docs, (const float*)idf_q,
       (const float*)ub, (const uint8_t*)valid, (int*)touched, (int*)kept, (int*)term_start,
       (int*)done, T, M, B, k, n_docs, k1, b, avgdl, safety);
-  pruned_count_kernel<<<qt, BUCKET_THREADS, 4 * (size_t)P, s>>>(
-      (const uint8_t*)tf, (const int*)docs, (const int*)kept, (const int*)term_start,
-      (int*)counts, T, M, B, n_docs, R, P);
-  pruned_scatter_kernel<<<qt, BUCKET_THREADS, (size_t)bm25_pruned_scatter_smem_bytes(T, P), s>>>(
-      (const uint8_t*)tf, (const float*)dl, (const int*)docs, (const float*)idf_q,
-      (const int*)kept, (const int*)term_start, (const int*)counts, (uint2*)bucket,
-      (int*)starts, T, M, B, n_docs, R, P, k1, b, avgdl);
+  // the count and scatter kernels have no static shared memory
+  const long long budget = smem_budget < MAX_SMEM ? smem_budget : MAX_SMEM;
+  const bool hist_smem = 4LL * P <= budget;      // the count's histogram, the wide scatter's cursors
+  if (hist_smem)
+    pruned_count_kernel<true><<<qt, BUCKET_THREADS, 4 * (size_t)P, s>>>(
+        (const uint8_t*)tf, (const int*)docs, (const int*)kept, (const int*)term_start,
+        (int*)counts, T, M, B, n_docs, R, P);
+  else
+    pruned_count_kernel<false><<<qt, BUCKET_THREADS, 0, s>>>(
+        (const uint8_t*)tf, (const int*)docs, (const int*)kept, (const int*)term_start,
+        (int*)counts, T, M, B, n_docs, R, P);
+  if (scatter_smem(T, P) <= budget) {
+    pruned_scatter_kernel<<<qt, BUCKET_THREADS, (size_t)scatter_smem(T, P), s>>>(
+        (const uint8_t*)tf, (const float*)dl, (const int*)docs, (const float*)idf_q,
+        (const int*)kept, (const int*)term_start, (const int*)counts, (uint2*)bucket,
+        (int*)starts, T, M, B, n_docs, R, P, k1, b, avgdl);
+  } else {
+    pruned_starts_kernel<<<Q, BUCKET_THREADS, 0, s>>>((int*)counts, (int*)starts, T, P);
+    if (hist_smem)
+      pruned_scatter_wide_kernel<true><<<qt, BUCKET_THREADS, 4 * (size_t)P, s>>>(
+          (const uint8_t*)tf, (const float*)dl, (const int*)docs, (const float*)idf_q,
+          (const int*)kept, (const int*)term_start, (int*)counts, (uint2*)bucket, T, M, B,
+          n_docs, R, P, k1, b, avgdl);
+    else
+      pruned_scatter_wide_kernel<false><<<qt, BUCKET_THREADS, 0, s>>>(
+          (const uint8_t*)tf, (const float*)dl, (const int*)docs, (const float*)idf_q,
+          (const int*)kept, (const int*)term_start, (int*)counts, (uint2*)bucket, T, M, B,
+          n_docs, R, P, k1, b, avgdl);
+  }
   pruned_range_kernel<<<(unsigned)((long long)Q * P), RANGE_THREADS,
                         (size_t)range_smem(T, k, R), s>>>(
       (const uint2*)bucket, (const int*)starts, (float*)surv_vals, (int*)surv_ids, (int*)done,

@@ -87,6 +87,17 @@ def bm25_block_scores_ref(tf, dl, idf, k1, b, avgdl):
     return num / denom
 
 
+def bm25_block_impacts_ref(tf, docs, valid, doc_len, idf, k1, b, avgdl, n_docs: int):
+    """Twin of K3's fused entry point: tf (..., T, M, B) uint8, docs (..., T,
+    M, B) int32, valid (..., T, M, 1) bool, doc_len (n_docs + 1,) f32, idf
+    (..., T) f32 → (..., T, M, B) f32. :func:`bm25_block_scores_ref` over
+    ``dl = doc_len[min(docs, n_docs)]``, +0.0 where the row is invalid, the
+    doc a pad or tf 0 — the steps of the reference's ``bm25_impacts``."""
+    dl = doc_len[torch.clamp(docs, max=n_docs).long()]
+    imp = bm25_block_scores_ref(tf, dl, idf, k1, b, avgdl)
+    return torch.where(valid & (docs < n_docs) & (tf > 0), imp, 0.0)
+
+
 def cumsum_f32(v: torch.Tensor) -> torch.Tensor:
     """Inclusive float32 cumsum along the last dim in the pinned order: rows
     of ``SCAN_ROW`` summed left to right, the row totals scanned recursively

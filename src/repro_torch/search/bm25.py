@@ -5,7 +5,8 @@ Score-at-a-time evaluation, batched over a leading Q dimension (no vmap, no
 Python loop over queries on the card):
 
 * gather the first M (impact-ordered) blocks of each of the query's T terms,
-* compute per-posting BM25 impacts (the K3 kernel, or its twin),
+* compute per-posting BM25 impacts (the K3 kernel, doc_len gather and
+  mask fused in, or its twin),
 * accumulate per-document scores:
     - ``dense``  : add into a (Q, n_docs+1) accumulator, one term at a time
                    in term order — the reference's flat scatter-add order,
@@ -33,7 +34,7 @@ import torch
 from repro_torch.index.builder import PackedIndex
 from repro_torch.kernels import ref
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.kernels.bm25_block import bm25_block_scores
+from repro_torch.kernels.bm25_block import bm25_block_impacts
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, keep_mask
 from repro_torch.kernels.topk import topk
 
@@ -119,14 +120,16 @@ def gather_query_blocks(state: SearchState, term_ids: torch.Tensor, max_blocks: 
 def bm25_impacts(state: SearchState, term_ids: torch.Tensor, qtf: torch.Tensor,
                  docs: torch.Tensor, tf: torch.Tensor, valid: torch.Tensor,
                  *, use_kernel: bool = False) -> torch.Tensor:
-    """Per-posting BM25 partial scores. (Q,T,M,B) float32."""
+    """Per-posting BM25 partial scores. (Q,T,M,B) float32. ``use_kernel``
+    runs K3's fused entry point: the doc_len gather and the mask happen in
+    its one launch, with the plain branch's bits."""
     tid = torch.clamp(term_ids, min=0).long()
     idf = state.idf[tid] * qtf                                  # (Q, T)
-    dl = state.doc_len[torch.clamp(docs, max=state.n_docs).long()]
     if use_kernel:
-        imp = bm25_block_scores(tf, dl, idf, *state.params)
-    else:
-        imp = ref.bm25_block_scores_ref(tf, dl, idf, state.k1, state.b, state.avgdl)
+        return bm25_block_impacts(tf, docs, valid, state.doc_len, idf, *state.params,
+                                  state.n_docs)
+    dl = state.doc_len[torch.clamp(docs, max=state.n_docs).long()]
+    imp = ref.bm25_block_scores_ref(tf, dl, idf, state.k1, state.b, state.avgdl)
     pad = docs >= state.n_docs
     return torch.where(valid & ~pad & (tf > 0), imp, 0.0)
 

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.data.corpus import synth_pruned_blocks
 from repro_torch.kernels import ref
-from repro_torch.kernels.bm25_block import bm25_block_scores
+from repro_torch.kernels.bm25_block import bm25_block_impacts, bm25_block_scores
 from repro_torch.kernels import bm25_pruned
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, range_docs
 from repro_torch.kernels.dot_topk import dot_topk_batch
@@ -53,7 +53,7 @@ def _bits(a, b):
     return np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 128), (16, 3, 128), (3, 16, 64, 128)])
+@pytest.mark.parametrize("shape", [(1, 1, 128), (16, 3, 128), (3, 16, 64, 128), (3, 5, 7, 102)])
 def test_bm25_block_kernel_equals_twin(cuda, shape):
     rng = np.random.default_rng(3)
     tf = rng.integers(0, 20, shape).astype(np.uint8)
@@ -64,6 +64,69 @@ def test_bm25_block_kernel_equals_twin(cuda, shape):
     got = bm25_block_scores(tf, dl, idf, *_F32)
     assert bm25_block_scores.launches == before + 1
     assert _bits(got, ref.bm25_block_scores_ref(tf, dl, idf, *_F32))
+
+
+def impacts_case(seed, shape, n_docs, invalid=0.3):
+    """numpy (tf, docs, valid, doc_len, idf) of a fused K3 call over
+    (..., T, M, B): about a fifth of the docs pads (n_docs), a twentieth of
+    tf 0, a share ``invalid`` of the rows invalid."""
+    rng = np.random.default_rng(seed)
+    tf = rng.integers(0, 20, shape).astype(np.uint8)
+    docs = rng.integers(0, n_docs, shape).astype(np.int32)
+    docs[rng.random(shape) < 0.2] = n_docs
+    valid = rng.random((*shape[:-1], 1)) >= invalid
+    doc_len = rng.uniform(1.0, 200.0, n_docs + 1).astype(np.float32)
+    idf = rng.uniform(0.1, 8.0, shape[:-2]).astype(np.float32)
+    return tf, docs, valid, doc_len, idf
+
+
+# (Q, T, M, B): one row; B 102 and 37 (groups of 4 postings span two rows,
+# and a tail of 2 postings follows the last group); the search path's Q 64 x
+# 16 x 64 x 128.
+K3_FUSED_SHAPES = [(1, 1, 1, 128), (3, 5, 7, 102), (2, 3, 5, 37), (64, 16, 64, 128)]
+
+
+@pytest.mark.parametrize("invalid", [0.3, 1.0])
+@pytest.mark.parametrize("shape", K3_FUSED_SHAPES)
+def test_bm25_block_impacts_kernel_equals_twin(cuda, shape, invalid):
+    """K3's fused entry point: one launch a call, bitwise equal to its twin
+    (the reference-shaped twin over the gathered doc_len, masked), with
+    pads, zero tf and invalid rows — all of them in the second case."""
+    n_docs = 1_000_000
+    args = _on(cuda, *impacts_case(sum(shape), shape, n_docs, invalid))
+    before = bm25_block_impacts.launches
+    got = bm25_block_impacts(*args, *_F32, n_docs)
+    assert bm25_block_impacts.launches == before + 1
+    want = ref.bm25_block_impacts_ref(*args, *_F32, n_docs)
+    assert _bits(got, want)
+    if invalid == 1.0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("offset", ["tf", "docs", "out-of-16"])
+def test_bm25_block_impacts_kernel_on_unaligned_views(cuda, offset):
+    """Both entry points on views that are not 16-byte aligned (tf one byte
+    in, docs and dl one element in; or tf 16 bytes in, docs 4 elements: the
+    vector path): the scalar loop takes them, bitwise equal to the twins."""
+    shape, n_docs = (4, 8, 6, 128), 5000
+    tf, docs, valid, doc_len, idf = impacts_case(11, shape, n_docs)
+    skip = {"tf": (1, 0), "docs": (0, 1), "out-of-16": (16, 4)}[offset]
+    tf_buf = torch.zeros(tf.size + skip[0], dtype=torch.uint8, device=cuda)
+    tf_buf[skip[0]:] = torch.from_numpy(tf.reshape(-1)).to(cuda)
+    doc_buf = torch.zeros(docs.size + skip[1], dtype=torch.int32, device=cuda)
+    doc_buf[skip[1]:] = torch.from_numpy(docs.reshape(-1)).to(cuda)
+    tf_v, docs_v = tf_buf[skip[0]:].view(shape), doc_buf[skip[1]:].view(shape)
+    aligned = tf_v.data_ptr() % 16 == 0 and docs_v.data_ptr() % 16 == 0
+    assert aligned == (offset == "out-of-16")
+    valid, doc_len, idf = _on(cuda, valid, doc_len, idf)
+    got = bm25_block_impacts(tf_v, docs_v, valid, doc_len, idf, *_F32, n_docs)
+    assert _bits(got, ref.bm25_block_impacts_ref(tf_v, docs_v, valid, doc_len, idf, *_F32,
+                                                 n_docs))
+    dl_buf = torch.zeros(docs.size + skip[1], dtype=torch.float32, device=cuda)
+    dl_buf[skip[1]:] = doc_len[torch.clamp(docs_v, max=n_docs).long()].reshape(-1)
+    dl_v = dl_buf[skip[1]:].view(shape)
+    got = bm25_block_scores(tf_v, dl_v, idf, *_F32)
+    assert _bits(got, ref.bm25_block_scores_ref(tf_v, dl_v, idf, *_F32))
 
 
 @pytest.mark.parametrize("N,k,chunk", [(1000, 10, 256), (100_000, 100, 16384), (13, 6, 8)])
@@ -250,17 +313,61 @@ def test_bm25_pruned_kernel_across_range_edges(cuda, case, ranges, extra):
     (64, 128, 10, 1_000_000, True),       # T·B 8,192 at k 10
     (16, 128, 1000, 8_800_000, True),     # 166 ranges × k 1,000 survivors
     (65, 128, 10, 1_000_000, False),      # T·B 8,320: θ's sort does not fit
-    (64, 128, 10, 200_000_000, False),    # 64 terms × 3,622 ranges of counts
+    (64, 128, 10, 200_000_000, True),     # 64 terms × 3,622 ranges of counts
 ])
 def test_bm25_pruned_plan_limits(cuda, T, B, k, n_docs, fits):
     """What the card's K1 takes and refuses, before it allocates anything:
-    θ's shared memory grows with T·B, the scatter's with T × ranges."""
+    θ's shared memory grows with T·B; T × ranges no longer limits it (the
+    counts go to device memory where they outgrow shared memory)."""
     if fits:
         R, P = bm25_pruned._plan(T, B, k, n_docs)
         assert R == range_docs(T, k) and P == -(-n_docs // R)
     else:
         with pytest.raises(ValueError, match="shared memory"):
             bm25_pruned._plan(T, B, k, n_docs)
+
+
+def test_bm25_pruned_kernel_past_the_old_range_limit(cuda):
+    """64 terms over 200M docs at k 10 — 3,622 ranges, whose 64 × 3,622
+    counts no block's shared memory holds — bitwise equal to the dense twin
+    (a 0.8 GB accumulator); one launch count."""
+    T, M, n_docs, k = 64, 8, 200_000_000, 10
+    arrays = synth_pruned_blocks(64, n_terms=T, max_blocks=M, n_docs=n_docs, zipf_a=1.3)
+    args = _on(cuda, *[a[None] for a in arrays])
+    assert -(-n_docs // range_docs(T, k)) * (T + 2) > 58_000
+    before = bm25_pruned_topk.launches
+    got = bm25_pruned_topk(*args, *_F32, k=k, n_docs=n_docs)
+    assert bm25_pruned_topk.launches == before + 1
+    want = ref.bm25_pruned_topk_ref(*args, *_F32, k=k, n_docs=n_docs)
+    assert all(_bits(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("budget", ["cursors in shared memory", "none"])
+@pytest.mark.parametrize("case", ["1M", "tie_edge"])
+def test_bm25_pruned_kernel_with_counts_in_device_memory(cuda, monkeypatch, case, budget):
+    """K1's device-memory paths at small sizes: with the shared-memory
+    budget lowered to 4·P bytes the counts are scanned in device memory and
+    the scatter's cursors stay in shared memory; at 0 the count's histogram
+    and the cursors are device-memory atomics. Bitwise equal to both twins,
+    on the 1M-doc synthetic blocks and on a k-th score tied across a range
+    edge."""
+    if case == "1M":
+        T, n_docs, k = 16, 1_000_000, 10
+        batch = [synth_pruned_blocks(T + q, n_terms=T, max_blocks=64, n_docs=n_docs,
+                                     zipf_a=1.3) for q in range(3)]
+        arrays = [np.stack(p) for p in zip(*batch)]
+        R = range_docs(T, k)
+    else:
+        R = range_docs(2, RANGES_K[case])
+        n_docs = 3 * R + 7
+        arrays, k = ranges_case(case, n_docs, R)
+    P = -(-n_docs // R)
+    monkeypatch.setattr(bm25_pruned, "SMEM_BUDGET", 4 * P if budget != "none" else 0)
+    args = _on(cuda, *arrays)
+    got = bm25_pruned_topk(*args, *_F32, k=k, n_docs=n_docs)
+    split = ref.bm25_pruned_ranges_ref(*args, *_F32, k=k, n_docs=n_docs, range_docs=R)
+    dense = ref.bm25_pruned_topk_ref(*args, *_F32, k=k, n_docs=n_docs)
+    assert all(_bits(g, r) and _bits(g, d) for g, r, d in zip(got, split, dense))
 
 
 # The dense tier's width (D=768, k=10) at every N and Q; then widths that

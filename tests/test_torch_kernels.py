@@ -19,10 +19,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.bm25_pruned import theta_lower_bound as j_theta
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.bm25_block import bm25_block_scores
+from repro_torch.kernels.bm25_block import bm25_block_impacts, bm25_block_scores
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, theta_lower_bound
 from repro_torch.kernels.topk import order_keys, topk
-from test_torch_cuda import ranges_case
+from test_torch_cuda import impacts_case, ranges_case
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -85,6 +85,25 @@ def test_bm25_block_scores_leading_q():
         want = jref.bm25_block_scores_ref(tf[q], dl[q], idf[q], np.float32(1.2),
                                           np.float32(0.75), np.float32(40.0))
         np.testing.assert_allclose(got[q], np.asarray(want), rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("shape,invalid", [((2, 4, 8, 128), 0.3), ((3, 5, 7, 100), 0.3),
+                                           ((1, 2, 3, 128), 1.0)])
+def test_bm25_block_impacts_twin_vs_pallas(shape, invalid):
+    """K3's fused entry point (its twin on the CPU) against the reference's
+    steps around the Pallas K3 in interpret mode — ``doc_len[min(docs,
+    n)]``, the kernel, the mask — query by query, with pads, zero tf and
+    invalid rows (all of them in the last case)."""
+    n_docs = 3000
+    tf, docs, valid, doc_len, idf = impacts_case(sum(shape), shape, n_docs, invalid)
+    got = bm25_block_impacts(*_t(tf, docs, valid, doc_len, idf), *_F32, n_docs).numpy()
+    for q in range(shape[0]):
+        dl = doc_len[np.minimum(docs[q], n_docs)]
+        imp = jops.bm25_block_scores(tf[q], dl, idf[q], *_F32, interpret=True)
+        want = jnp.where(valid[q] & (docs[q] < n_docs) & (tf[q] > 0), imp, 0.0)
+        np.testing.assert_allclose(got[q], np.asarray(want), rtol=RTOL, atol=0)
+    if invalid == 1.0:
+        assert not got.any()
 
 
 def test_fma_f32_is_correctly_rounded():

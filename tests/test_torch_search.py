@@ -8,6 +8,7 @@ dense bitwise.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,7 +18,7 @@ from repro.index.builder import IndexWriter
 from repro.search import bm25 as jbm25
 from repro_torch.search import bm25 as tbm25
 from repro_torch.search.searcher import SearchConfig, Searcher
-from test_torch_kernels import assert_topk_close
+from test_torch_kernels import RTOL, assert_topk_close
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -72,6 +73,33 @@ def test_make_search_fn_matches_reference(packed, encoded, accumulator, use_kern
     assert gv.dtype == np.float32 and gi.dtype == np.int32 and gv.shape == wv.shape
     for q in range(len(gv)):
         assert_topk_close(gv[q], gi[q], wv[q], wi[q])
+
+
+@pytest.mark.parametrize("max_blocks", [8, 64])
+def test_bm25_impacts_kernel_matches_reference(packed, encoded, max_blocks):
+    """``bm25_impacts(use_kernel=True)`` — K3's fused entry point, its twin
+    here — against the reference's through the Pallas K3 in interpret mode,
+    query by query, on the index's gathered blocks: invalid rows (aliasing
+    block 0, real docs and tf), pad lanes (doc n_docs) and a seeded tenth
+    of the postings' tf set to 0."""
+    tids, qtf = encoded
+    tstate = tbm25.SearchState.from_packed(packed, "cpu")
+    jstate = jbm25.SearchState.from_packed(packed)
+    t_ids, t_qtf = torch.from_numpy(tids), torch.from_numpy(qtf)
+    docs, tf, _, valid = tbm25.gather_query_blocks(tstate, t_ids, max_blocks)
+    rng = np.random.default_rng(max_blocks)
+    tf = torch.where(torch.from_numpy(rng.random(tuple(tf.shape)) < 0.1), 0, tf).to(torch.uint8)
+    got = tbm25.bm25_impacts(tstate, t_ids, t_qtf, docs, tf, valid, use_kernel=True).numpy()
+    n = packed.meta.n_docs
+    d, f, v = docs.numpy(), tf.numpy(), valid.numpy()
+    live = (d < n) & (f > 0)
+    assert (live & ~v).any() and (d == n).any() and ((d < n) & (f == 0) & v).any()
+    assert not got[~(live & v)].any() and (got[live & v] > 0).any()
+    for q in range(len(tids)):
+        want = jbm25.bm25_impacts(jstate, jnp.asarray(tids[q]), jnp.asarray(qtf[q]),
+                                  jnp.asarray(d[q]), jnp.asarray(f[q]), jnp.asarray(v[q]),
+                                  use_kernel=True)
+        np.testing.assert_allclose(got[q], np.asarray(want), rtol=RTOL, atol=0)
 
 
 @pytest.mark.parametrize("accumulator", ["dense", "sorted", "pruned"])
