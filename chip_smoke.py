@@ -10,6 +10,7 @@ NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --topk-only     # phases 1, 2, then K2 and K4 alone (no ok line)
     python3 chip_smoke.py --k1-k6-only    # phases 1, 2, then K1 and K6 alone (no ok line)
     python3 chip_smoke.py --k3-only       # phases 1, 2, then K3 alone (no ok line)
+    python3 chip_smoke.py --structured-only  # phases 1, 2 and 9 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -56,7 +57,18 @@ Phases (each raises on failure; the script then exits non-zero):
      standard of the reference's parity tests (ext ids, and scores to 6
      decimals), on 64 queries whose terms have at most ``max_blocks``·128
      postings — the standard's own precondition: no impact-ordered
-     truncation in any partition or in the single node;
+     truncation in any partition or in the single node. Then a commit at
+     full scale: ``add_documents`` of 10,000 new passages
+     (``synth_corpus(10_000, seed=2)``, ext ids of their own) and
+     ``delete_documents`` of 10,000 live ids (``default_rng(3)``), one
+     ``commit()``, whose writers must publish deltas (no merge at 1 %
+     churn); its host wall, modeled latency, the rollover's pings and cold
+     hydrations per pool, the wall to the first answer of generation 2 and
+     ``memory_allocated`` before, after and after ``gc`` are printed. Then
+     the three modes' traffic again on generation 2 (the first query on
+     the rollover's prewarmed pools, 20 warm, the window, the counters
+     checked) against a generation-2 dense oracle, and no deleted ext id
+     may be served;
   7. LM serving on K5: h2o-danube-1.8b at full width (24 layers, d 2560,
      bf16, random weights from a seeded ``torch.Generator``). ``lm_prefill``
      of 4 ``LMTokenStream`` prompts of 6,144 tokens (past the 4,096 window:
@@ -87,7 +99,30 @@ Phases (each raises on failure; the script then exits non-zero):
      ``torch.nn.functional.embedding_bag`` and the bound at fm's linear term
      (D 1), fm's tower (D 10) and dcn-v2's (D 16), 262,144 bags each; K2
      at bert4rec's vocabulary top-100 (512 × 2²⁰ + 2 logits) against its
-     twin, bitwise, and timed in turns with ``torch.topk``.
+     twin, bitwise, and timed in turns with ``torch.topk``;
+  9. the structured tier and the write path against oracles (the
+     reference's B16 and B11): ``synth_fielded_corpus(100_000, vocab=50_000)``,
+     a fleet of 4 partitions × 2 replicas over the first 90,000
+     (``IndexSpec(structured=True, facet_fields=("cat",))``, B16's window,
+     pruned + kernels, k 100, lazy). Per generation and kind — 64
+     ``synth_structured_queries`` with a ``cat`` facet request, 64
+     bag-of-words ``synth_queries`` — every instance killed, one cold query,
+     20 warm and the 64 through ``submit``/``flush``, windowed == serial;
+     the counters show K2 alone on the structured route and K1 alone on the
+     bag-of-words one. Structured answers equal ``StructuredOracleSearcher``
+     over the live corpus (ext ids, score bits, order; facets), one phrase
+     query's result set ``exact_match_set`` and its facets
+     ``exact_facet_counts``, its snippets cover every matched term;
+     bag-of-words ext ids equal ``OracleSearcher`` on the queries no
+     partition truncates; partition 0's evaluator on the card equals the
+     same function on the CPU bit for bit. Between the generations the
+     last 10,000 docs are added and 5,000 seeded ids deleted, committed
+     inside an open window: queries admitted before the commit answer from
+     generation 1, those after from generation 2, each equal to its
+     generation's oracle, and no deleted id is served. Prints the warm
+     p50/p99 of both kinds per generation and their p99 ratio, and the
+     evaluator's device time a query by leaf kind, K2's beside it, from a
+     profiler window of 5 warm structured queries.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -106,6 +141,8 @@ device time split by kernel.
 ``--k3-only`` runs phases 1-2 and then K3's two entry points and the eager
 chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
 ``doc_len`` table, as phase 4 runs them.
+
+``--structured-only`` runs phases 1-2 and then phase 9.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -779,17 +816,26 @@ def _bits(scores) -> list:
     return np.float32(scores).view(np.uint32).tolist()
 
 
-def fleet_traffic(app, queries, oracle, kern):
-    """Phase 6b: per mode, kill every instance, then one cold query, 20 warm
-    queries and a 64-query micro-batch through ``submit``/``flush``, with
-    the launch counters set to 0 before the mode and read after it."""
+def kill_all(app) -> None:
+    """Kill every instance of every function: the next query is cold."""
+    for fn in [fn for group in app.fn_groups for fn in group]:
+        while app.runtime.kill_instance(fn=fn):
+            pass
+
+
+def fleet_traffic(app, queries, oracle, kern, tag="6", profile=True, served=None, kill=True):
+    """Phase 6b: per mode, kill every instance (``kill``; else the pools
+    stay as they are, e.g. prewarmed by a rollover), then one first query
+    (cold when killed), 20 warm queries and a 64-query micro-batch through
+    ``submit``/``flush``, with the launch counters set to 0 before the mode
+    and read after it. Every ext id served goes into ``served`` when given;
+    ``profile`` takes a profiler window of each mode."""
     from repro_torch.core.partition import rrf_fuse
-    fns = [fn for group in app.fn_groups for fn in group]
     answers, launches = {}, {}
+    first = "cold" if kill else "first"
     for mode, expected in FLEET_MODES.items():
-        for fn in fns:
-            while app.runtime.kill_instance(fn=fn):
-                pass
+        if kill:
+            kill_all(app)
         n0 = len(app.runtime.records)
         for fn in kern.values():
             fn.launches = 0
@@ -818,15 +864,18 @@ def fleet_traffic(app, queries, oracle, kern):
                     f"fleet {mode}: kernel {name} launched {n} times, expected "
                     f"{'some' if name in expected else 'none'}")
         cold, warm = recs[:FLEET_PARTS], recs[FLEET_PARTS:]
-        require(all(r.cold for r in cold) and not any(r.cold for r in warm),
+        require((not kill or all(r.cold for r in cold)) and not any(r.cold for r in warm),
                 f"{mode}: cold/warm pattern")
         warm_exec = [max(r.exec_s for r in warm[i:i + FLEET_PARTS]) * 1e3
                      for i in range(0, len(warm), FLEET_PARTS)]
+        if served is not None:
+            for body in serial + [w.body for w in windowed]:
+                served.update(body["ext_ids"])
         # the second query is warm but pays the rebuild of each lazy sparse
         # searcher after the cold query's backfill; queries 3-21 are steady
-        print(f"[6] {mode}: launches {launches[mode]}; cold hydrate_s (modeled, max of "
-              f"{FLEET_PARTS} legs) {max(r.hydrate_s for r in cold):.4f}, cold exec_s "
-              f"{max(r.exec_s for r in cold) * 1e3:.1f} ms, cold wall {walls[0]:.1f} ms; "
+        print(f"[{tag}] {mode}: launches {launches[mode]}; {first} hydrate_s (modeled, max of "
+              f"{FLEET_PARTS} legs) {max(r.hydrate_s for r in cold):.4f}, {first} exec_s "
+              f"{max(r.exec_s for r in cold) * 1e3:.1f} ms, {first} wall {walls[0]:.1f} ms; "
               f"second query wall {walls[1]:.1f} ms, exec_s (slowest leg) "
               f"{warm_exec[0]:.1f} ms; warm wall (queries 2-21) p50 "
               f"{np.percentile(walls[1:], 50):.3f} ms p99 {np.percentile(walls[1:], 99):.3f} ms, "
@@ -841,8 +890,9 @@ def fleet_traffic(app, queries, oracle, kern):
             require(a["ext_ids"] == w.body["ext_ids"] and _bits(a["scores"]) == _bits(w.body["scores"]),
                     f"{mode} query {i}: windowed != serial")
         answers[mode] = [w.body for w in windowed]
-        profile_window("6", f"fleet {mode}", lambda q: app.query(
-            q, k=K, mode=mode, t_arrival=app.runtime.clock + 0.05), queries[20:26], kern)
+        if profile:
+            profile_window(tag, f"fleet {mode}", lambda q: app.query(
+                q, k=K, mode=mode, t_arrival=app.runtime.clock + 0.05), queries[20:26], kern)
     for qi, q in enumerate(queries):
         d = answers["dense"][qi]
         want = oracle.search(q, k=K)
@@ -856,7 +906,7 @@ def fleet_traffic(app, queries, oracle, kern):
         s = answers["sparse"][qi]
         require(all(np.isfinite(s["scores"])) and s["scores"] == sorted(s["scores"], reverse=True)
                 and len(d["ids"]) == K, f"query {qi}: scores not finite/descending or short")
-    print(f"[6] all {len(queries)} queries: dense == full-corpus oracle (ids, score bits); "
+    print(f"[{tag}] all {len(queries)} queries: dense == full-corpus oracle (ids, score bits); "
           f"hybrid == rrf_fuse(sparse, dense); windowed == serial (bits) on the first 21",
           flush=True)
     return launches
@@ -876,6 +926,112 @@ def sparse_vs_single(app, single, queries):
           f"(ext ids, scores to 6 decimals)", flush=True)
 
 
+COMMIT_DOCS = 10_000          # added and deleted by phase 6's commit: 1 % churn
+
+
+def memo_embedder(dim: int):
+    """``hash_embedder(dim)`` remembering each text's vector: the fleet's
+    indexer embeds every doc once, and the oracles built over the same
+    texts read them back instead of embedding the corpus again."""
+    from repro_torch.data.corpus import hash_embedder
+    embed, seen = hash_embedder(dim), {}
+
+    def memo(text: str):
+        v = seen.get(text)
+        if v is None:
+            v = seen[text] = embed(text)
+        return v
+
+    memo.dim = dim
+    return memo
+
+
+def dense_oracle_after(oracle, live, embedder, torch):
+    """The full-corpus dense oracle of a later generation: the earlier
+    oracle's row of every surviving doc (a doc's vector is a function of its
+    text alone), the embedder's for the docs added since, in ``live``'s
+    order."""
+    from repro_torch.search.oracle import DenseOracleSearcher
+    at = {e: i for i, e in enumerate(oracle.doc_ids)}
+    ids = [e for e, _ in live]
+    old = torch.tensor([at.get(e, -1) for e in ids], device=oracle.device)
+    rows = oracle.vectors[old.clamp(min=0)]
+    fresh = [i for i, e in enumerate(ids) if e not in at]
+    if fresh:
+        rows[torch.tensor(fresh, device=oracle.device)] = torch.as_tensor(
+            np.stack([embedder(live[i][1]) for i in fresh])).to(oracle.device)
+    new = DenseOracleSearcher([], embedder, device=oracle.device)
+    new.doc_ids, new.vectors = ids, rows
+    return new
+
+
+def fleet_commit(app, queries, oracle, torch, kern):
+    """Phase 6d: a commit at full scale. ``add_documents`` of COMMIT_DOCS
+    new documents and ``delete_documents`` of COMMIT_DOCS live ones, one
+    ``commit()`` (the merge policy's defaults publish deltas at this churn),
+    then the modes' traffic again on the new generation. Returns the
+    traffic's launches."""
+    from repro_torch.data.corpus import synth_corpus
+    added = [(f"nrt{i:06d}", text) for i, (_, text) in enumerate(
+        synth_corpus(COMMIT_DOCS, vocab=1 << 19, mean_len=60, seed=2))]
+    live = [e for e, _ in app.indexer.live_corpus()]
+    require(not set(e for e, _ in added) & set(live), "added ext ids collide")
+    rng = np.random.default_rng(3)
+    deleted = [live[i] for i in rng.choice(len(live), COMMIT_DOCS, replace=False)]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    require(app.add_documents(added).ok and app.delete_documents(deleted).ok, "staging")
+    n_rec = len(app.runtime.records)
+    t1 = time.perf_counter()
+    c = app.commit()
+    t2 = time.perf_counter()
+    require(c.status == 200 and c.body.get("committed") and c.body["gen"] == 2,
+            f"commit: {c.status} {c.body}")
+    require(not c.body["merged"], f"the commit merged partitions {c.body['merged']}: at "
+            f"1 % churn the merge policy's defaults must publish deltas")
+    recs = app.runtime.records[n_rec:]
+    writers = [r for r in recs if r.write]
+    pings = [r for r in recs if r.keepalive]
+    first = app.query(queries[0], k=K, t_arrival=app.runtime.clock + 0.05)
+    t3 = time.perf_counter()
+    require(first.status == 200 and first.body["generation"] == 2, "first answer of gen 2")
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem2 = torch.cuda.memory_allocated()
+    by_pool: dict = {}
+    for r in pings:
+        by_pool.setdefault(r.fn, []).append(r)
+    print(f"[6] commit of {COMMIT_DOCS} adds and {COMMIT_DOCS} deletes: staging "
+          f"{(t1 - t0) * 1e3:.1f} ms, commit() host wall {t2 - t1:.2f} s, modeled latency "
+          f"{c.latency_s:.4f} s; writers {len(writers)}, ops "
+          f"{ {w.fn: 'merge' if int(w.fn.rsplit('p', 1)[1]) in c.body['merged'] else 'delta' for w in writers} }, "
+          f"writer exec_s {[round(w.exec_s, 3) for w in writers]}", flush=True)
+    print(f"[6] rollover: {c.body['pings']} pings; cold hydrations per pool "
+          f"{ {fn: sum(r.hydrate_s > 0 for r in rs) for fn, rs in by_pool.items()} }, "
+          f"modeled hydrate_s per pool { {fn: round(sum(r.hydrate_s for r in rs), 4) for fn, rs in by_pool.items()} }; "
+          f"wall from commit() to the first answer of generation 2 {t3 - t1:.2f} s", flush=True)
+    print(f"[6] torch.cuda.memory_allocated: before the commit {mem0} B, after it {mem1} B, "
+          f"after gc {mem2} B", flush=True)
+    t0 = time.perf_counter()
+    live_docs = app.indexer.live_corpus()
+    oracle = dense_oracle_after(oracle, live_docs, app.embedder, torch)
+    print(f"[6] generation 2's dense oracle ({oracle.vectors.shape[0]} rows) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    served: set = set(first.body["ext_ids"])
+    # the rollover prewarmed every pool on generation 2: each mode's first
+    # query is generation 2's first touch of that tier, not a killed pool's
+    launches = fleet_traffic(app, queries, oracle, kern, tag="6 gen 2", profile=False,
+                             served=served, kill=False)
+    gone = served & set(deleted)
+    require(not gone, f"deleted ext ids served after the commit: {sorted(gone)[:5]}")
+    print(f"[6] generation 2: {len(served)} distinct ext ids served, none of the "
+          f"{COMMIT_DOCS} deleted", flush=True)
+    return launches
+
+
 def fleet_phase(docs, queries, single, torch, ref, kern, device="cuda"):
     """Phase 6: the partitioned fleet with its dense tier on the card."""
     from repro_torch.core.gateway import WindowPolicy
@@ -888,7 +1044,8 @@ def fleet_phase(docs, queries, single, torch, ref, kern, device="cuda"):
     t0 = time.perf_counter()
     # one window takes the whole 64-query micro-batch (max_batch flushes it)
     app = build_partitioned_search_app(docs, FleetSpec(
-        n_parts=FLEET_PARTS, index=IndexSpec(vector=VectorSpec(dim=VEC_DIM)),
+        n_parts=FLEET_PARTS, index=IndexSpec(vector=VectorSpec(
+            dim=VEC_DIM, embedder=memo_embedder(VEC_DIM))),
         gateway=GatewaySpec(window=WindowPolicy(max_window_s=1.0, target_batch=N_QUERIES,
                                                 sparse_qps=0.0, p99_budget_s=None,
                                                 max_batch=N_QUERIES)),
@@ -912,6 +1069,11 @@ def fleet_phase(docs, queries, single, torch, ref, kern, device="cuda"):
     print(f"[6] max_memory_allocated during the fleet traffic "
           f"{torch.cuda.max_memory_allocated()} B", flush=True)
     sparse_vs_single(app, single, untruncated)
+    t0 = time.perf_counter()
+    after = fleet_commit(app, queries, oracle, torch, kern)
+    launches.update({f"{mode} after commit": c for mode, c in after.items()})
+    print(f"[6] the commit and generation 2's traffic took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return k4, launches, sizes
 
 
@@ -1707,6 +1869,332 @@ def k6_line(results, launches, err) -> dict:
     }
 
 
+# -- phase 9: the structured tier and the write path against oracles ---------------
+
+# synth_fielded_corpus at B16's vocabulary rule (n_docs // 2), cut from
+# 100,000 to fit the smoke's time limit: the v2 packs of the fleet and of
+# the two generations' oracles are host numpy, ~0.5 ms a doc each
+STRUCT_DOCS = 50_000
+STRUCT_INCOMING = STRUCT_DOCS // 10    # the corpus's last docs arrive by commit
+STRUCT_DELETES = STRUCT_DOCS // 20
+STRUCT_K = 100                 # B16's fleet ceiling; requests take k 10
+STRUCT_WINDOW = dict(max_window_s=0.08, target_batch=8, sparse_qps=2.0, p99_budget_s=2.0)
+STRUCT_GAP_S = 0.01            # B16's arrival spacing (jittered ±10 %)
+STRUCT_BAG_ORACLE = 16         # untruncated bag-of-words queries held to OracleSearcher
+STRUCT_ROUTES = {"structured": ("K2",), "bag-of-words": ("K1",)}
+
+
+def struct_offsets(n: int, seed: int = 16) -> "np.ndarray":
+    """B16's burst schedule: arrival offsets ~``STRUCT_GAP_S`` apart."""
+    rng = np.random.default_rng(seed)
+    return np.cumsum(STRUCT_GAP_S * rng.uniform(0.9, 1.1, size=n))
+
+
+def structured_traffic(app, sqs, bag, kern, gen):
+    """Per kind (structured with a facet request, bag-of-words), every
+    instance killed first: one cold query, 20 warm queries and the 64
+    queries through ``submit``/``flush`` on B16's arrival schedule, the
+    launch counters set to 0 before the kind and read after it. Returns
+    {kind: (serial bodies, windowed bodies, walls ms of queries 2-21,
+    launches)}."""
+    out = {}
+    for kind, expected in STRUCT_ROUTES.items():
+        qs = sqs if kind == "structured" else bag
+        kw = (lambda q: dict(sq=q, facets=["cat"])) if kind == "structured" else \
+            (lambda q: dict(q=q))
+        kill_all(app)
+        reset(kern)
+        serial, walls = [], []
+        for q in qs[:21]:
+            t0 = time.perf_counter()
+            r = app.query(**kw(q), k=K, fetch_docs=False, t_arrival=app.runtime.clock + 0.05)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            require(r.status == 200 and r.body["generation"] == gen,
+                    f"{kind}: {r.status} {r.body}")
+            serial.append(r.body)
+        t_sub = app.runtime.clock + 1.0
+        batches0 = app.gateway.window_stats("GET", "/search")["batches"]
+        t0 = time.perf_counter()
+        handles = [app.submit(**kw(q), k=K, fetch_docs=False, t_arrival=t_sub + float(off))
+                   for q, off in zip(qs, struct_offsets(len(qs)))]
+        app.flush()
+        window_wall = (time.perf_counter() - t0) * 1e3
+        windowed = [h.response for h in handles]
+        require(all(w.status == 200 for w in windowed), f"{kind}: windowed status")
+        launches = {name: fn.launches for name, fn in kern.items()}
+        for name, n in launches.items():
+            require((n > 0) == (name in expected),
+                    f"{kind} (generation {gen}): kernel {name} launched {n} times, expected "
+                    f"{'some' if name in expected else 'none'}")
+        for i, (a, w) in enumerate(zip(serial, windowed)):
+            require(a["ext_ids"] == w.body["ext_ids"] and _bits(a["scores"]) == _bits(w.body["scores"])
+                    and a.get("facets") == w.body.get("facets"),
+                    f"{kind} query {i}: windowed != serial")
+        batches = app.gateway.window_stats("GET", "/search")["batches"] - batches0
+        # the second query is warm but pays the rebuild of each lazy leg's
+        # searcher after the cold query's backfill; queries 3-21 are steady
+        print(f"[9] generation {gen}, {kind}: launches {launches}; cold wall {walls[0]:.1f} ms, "
+              f"second query {walls[1]:.1f} ms; steady wall (queries 3-21) p50 "
+              f"{np.percentile(walls[2:], 50):.3f} ms p99 {np.percentile(walls[2:], 99):.3f} ms; "
+              f"{len(qs)} queries in {batches} window dispatches, {window_wall:.1f} ms of wall; "
+              f"windowed == serial (bits, facets) on the first 21", flush=True)
+        out[kind] = ([b for b in serial], [w.body for w in windowed], walls[1:], launches)
+    return out
+
+
+def structured_checks(app, sqs, bag, traffic, oracle, gen, max_postings):
+    """A generation's answers against the oracles over its live corpus:
+    structured top-k (ext ids, score bits, order) and merged facets ==
+    ``StructuredOracleSearcher``; one phrase query's full result set ==
+    ``exact_match_set``, its facets == ``exact_facet_counts``, its snippets
+    cover every matched term; bag-of-words ext ids == ``OracleSearcher`` on
+    the queries whose terms no partition truncates."""
+    from repro_torch.index.tokenizer import flatten_text, tokenize
+    from repro_torch.search.oracle import OracleSearcher
+    live = app.indexer.live_corpus()
+    t0 = time.perf_counter()
+    for i, (sq, body) in enumerate(zip(sqs, traffic["structured"][1])):
+        want = [(live[d][0], v) for d, v in oracle.search(sq, K)]
+        require(list(zip(body["ext_ids"], body["scores"])) == want,
+                f"structured query {i} {sq!r}: != StructuredOracleSearcher")
+        require(body["facets"]["cat"] == oracle.facet_counts(sq, "cat"),
+                f"structured query {i} {sq!r}: facets != the oracle's packed count")
+    t1 = time.perf_counter()
+    phrase = next(sq for sq in sqs if sq.startswith('"') and 0 < len(oracle.match_set(sq)) <= STRUCT_K)
+    r = app.query(sq=phrase, k=STRUCT_K, facets=["cat"], snippets=True,
+                  t_arrival=app.runtime.clock + 0.05).body
+    exact = {live[d][0] for d in oracle.exact_match_set(phrase)}
+    require(set(r["ext_ids"]) == exact, f"phrase {phrase!r}: result set != exact_match_set")
+    require(r["facets"]["cat"] == oracle.exact_facet_counts(phrase, "cat"),
+            f"phrase {phrase!r}: facets != exact_facet_counts")
+    terms = set(oracle._query(phrase).terms)
+    for doc, snip in zip(r["docs"], r["snippets"]):
+        for t in terms & set(tokenize(doc["contents"])):
+            require("<em>" in snip and t in snip.lower(), f"snippet misses {t!r}: {snip!r}")
+    t2 = time.perf_counter()
+    bag_oracle = OracleSearcher(live)
+    df = app.indexer.stats["df"]
+    checked = 0
+    for i, (q, body) in enumerate(zip(bag, traffic["bag-of-words"][1])):
+        if not all(df.get(t, 0) <= max_postings for t in tokenize(q)):
+            continue
+        want = [bag_oracle.doc_ids[d] for d, _ in bag_oracle.search(q, K)]
+        require(body["ext_ids"] == want, f"bag-of-words query {i} {q!r}: != OracleSearcher")
+        checked += 1
+    # the mix's head terms outgrow max_blocks; more untruncated queries,
+    # drawn as phase 6 draws them
+    for q in fleet_queries([(e, flatten_text(t)) for e, t in live], df, max_postings,
+                           STRUCT_BAG_ORACLE):
+        body = app.query(q, k=K, fetch_docs=False, t_arrival=app.runtime.clock + 0.05).body
+        want = [bag_oracle.doc_ids[d] for d, _ in bag_oracle.search(q, K)]
+        require(body["ext_ids"] == want, f"bag-of-words query {q!r}: != OracleSearcher")
+        checked += 1
+    print(f"[9] generation {gen} ({len(live)} live docs): {len(sqs)} structured queries == "
+          f"StructuredOracleSearcher (ext ids, score bits, order; facets) in {t1 - t0:.1f} s; "
+          f"phrase {phrase!r}: {len(exact)} docs == exact_match_set, facets == "
+          f"exact_facet_counts, snippets cover every matched term, in {t2 - t1:.1f} s; "
+          f"{checked} untruncated bag-of-words queries == OracleSearcher (ext ids) in "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+
+
+def evaluator_card_vs_cpu(app, cfg, sqs, torch, device, gen):
+    """Partition 0's live packed arrays of generation ``gen``: the
+    evaluator on the card equals the same function on the CPU, bit for bit
+    (scores, eligibility, facets)."""
+    from repro_torch.core.refresh import generation_version
+    from repro_torch.search.query import parse_query
+    from repro_torch.search.searcher import hydrate_searcher
+    from repro_torch.search.structured import (StructuredState, evaluate_structured,
+                                               facet_counts)
+    searcher, _ = hydrate_searcher(app.catalog, app.assets[0], cfg, generation_version(gen),
+                                   device)
+    card = searcher.structured
+    cpu = StructuredState.from_packed(searcher.packed, device="cpu")
+    favg = app._field_avgdl()
+    for i, sq in enumerate(sqs):
+        q = parse_query(sq)
+        a, ea = evaluate_structured(card, q, field_avgdl=favg)
+        b, eb = evaluate_structured(cpu, q, field_avgdl=favg)
+        require(bits_equal(a, b) and bits_equal(ea, eb)
+                and facet_counts(card, ea, "cat") == facet_counts(cpu, eb, "cat"),
+                f"structured query {i} {sq!r}: the evaluator on the card != on the CPU")
+    print(f"[9] generation {gen}, partition 0 ({card.n_docs} docs, {card.nbytes} B of v2 "
+          f"sidecar on the card): evaluate_structured on the card == on the CPU, bit for bit "
+          f"(scores, eligibility, facets), {len(sqs)} queries", flush=True)
+
+
+def leaf_split(app, sqs, kern, calls: int = 5) -> dict:
+    """Device µs a warm structured query spends in each of the evaluator's
+    profiler ranges (``structured.<leaf kind>``, ``structured.topk``,
+    ``structured.facets``), summed over its partition legs, and in K2's
+    kernel, from a ``torch.profiler`` trace of ``calls`` warm queries."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(q):
+        app.query(sq=q, k=K, facets=["cat"], fetch_docs=False,
+                  t_arrival=app.runtime.clock + 0.05)
+
+    run(sqs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for q in sqs[1:1 + calls]:
+            run(q)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.key.startswith("structured.") and e.device_type == DeviceType.CPU:
+            split[e.key] = (e.device_time_total / calls, e.count)
+        elif any(t in e.key for t in TRACE_NAMES["K2"]) and e.device_type == DeviceType.CUDA:
+            split["K2 topk_select_kernel"] = (e.self_device_time_total / calls, e.count)
+    print(f"[9] device time a warm structured query (us, summed over its legs; from "
+          f"{calls} queries): " + ", ".join(f"{k} {v:.1f} (x{n})" for k, (v, n) in sorted(split.items())),
+          flush=True)
+    return split
+
+
+def oracle_on_cpu(docs):
+    """``StructuredOracleSearcher`` over ``docs``, packed on the CPU in a
+    worker process (the v2 pack is host numpy), its device state dropped
+    for the trip back."""
+    from repro_torch.search.oracle import StructuredOracleSearcher
+    oracle = StructuredOracleSearcher(docs, facet_fields=("cat",), device="cpu")
+    oracle.state = None
+    return oracle
+
+
+def oracle_on(future, device, what: str):
+    """The worker's oracle with its state on ``device``."""
+    from repro_torch.search.structured import StructuredState
+    t0 = time.perf_counter()
+    oracle = future.result()
+    oracle.state = StructuredState.from_packed(oracle.packed, device=device)
+    print(f"[9] {what}: full-corpus structured oracle ({len(oracle.docs)} docs) on the card, "
+          f"{time.perf_counter() - t0:.1f} s after it was needed", flush=True)
+    return oracle
+
+
+def window_check(handles, sqs, oracle, corpus, gen) -> None:
+    """Every answer of ``handles`` came from generation ``gen`` and equals
+    that generation's oracle (ext ids, score bits, order; facets)."""
+    for h, sq in zip(handles, sqs):
+        b = h.response.body
+        require(h.response.status == 200 and b["generation"] == gen,
+                f"{sq!r}: admitted under generation {gen}, answered {b.get('generation')}")
+        want = [(corpus[d][0], v) for d, v in oracle.search(sq, K)]
+        require(list(zip(b["ext_ids"], b["scores"])) == want
+                and b["facets"]["cat"] == oracle.facet_counts(sq, "cat"),
+                f"{sq!r}: the window's answer != generation {gen}'s oracle")
+
+
+def structured_phase(kern, torch, device="cuda", n_docs=STRUCT_DOCS):
+    """Phase 9: the structured tier and the write path on the card, held to
+    the oracles before and after a commit that lands inside an open
+    admission window. Each generation's oracle packs in a worker process
+    while the fleet is built or serves."""
+    import concurrent.futures
+    import multiprocessing
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return _structured_phase(kern, torch, device, n_docs, pool)
+
+
+def _structured_phase(kern, torch, device, n_docs, pool):
+    from repro_torch.core.gateway import WindowPolicy
+    from repro_torch.core.partition import FleetSpec, GatewaySpec, IndexSpec, ReplicationSpec
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.data.corpus import (synth_fielded_corpus, synth_queries,
+                                         synth_structured_queries)
+    from repro_torch.index.tokenizer import flatten_text
+    from repro_torch.search.searcher import SearchConfig
+    from repro_torch.search.service import build_partitioned_search_app
+    t_phase = time.perf_counter()
+    docs = synth_fielded_corpus(n_docs, vocab=n_docs // 2, seed=0)
+    base, incoming = docs[:n_docs - STRUCT_INCOMING], docs[n_docs - STRUCT_INCOMING:]
+    # generation 1's live corpus is ``base``: the fleet splits it into
+    # contiguous partitions (checked below)
+    pending = pool.submit(oracle_on_cpu, base)
+    sqs = synth_structured_queries(base, N_QUERIES, seed=16)
+    bag = synth_queries([(e, flatten_text(t)) for e, t in base], N_QUERIES, seed=17)
+    t0 = time.perf_counter()
+    # B16's clock under --det: modeled exec and writer seconds, so the
+    # window sizes itself from modeled latencies as B16's does, and no
+    # query's host wall (a cold leg's view rebuilds) closes it
+    cfg = SearchConfig(accumulator="pruned", use_kernel=True, use_topk_kernel=True,
+                       k=STRUCT_K, lazy_hydration=True, sim_exec_s=0.002, sim_write_s=0.02)
+    app = build_partitioned_search_app(base, FleetSpec(
+        n_parts=FLEET_PARTS, replication=ReplicationSpec(replicas=2),
+        gateway=GatewaySpec(window=WindowPolicy(**STRUCT_WINDOW)),
+        index=IndexSpec(structured=True, facet_fields=("cat",)),
+        search_config=cfg, runtime_config=RuntimeConfig(seed=0)), device=device)
+    t1 = time.perf_counter()
+    require(app.indexer.live_corpus() == base, "generation 1's live corpus != the fleet's docs")
+    print(f"[9] {n_docs} fielded docs ({len(base)} in the fleet, {len(incoming)} incoming): "
+          f"corpus {t0 - t_phase:.1f} s; fleet of {FLEET_PARTS} x 2 replicas, format v2, "
+          f"pruned + kernels, k {STRUCT_K}, lazy: built in {t1 - t0:.1f} s", flush=True)
+    oracle = oracle_on(pending, device, "generation 1")
+    launches = {}
+    traffic = structured_traffic(app, sqs, bag, kern, 1)
+    launches.update({f"{kind}": tr[3] for kind, tr in traffic.items()})
+    structured_checks(app, sqs, bag, traffic, oracle, 1, cfg.max_blocks * 128)
+    evaluator_card_vs_cpu(app, cfg, sqs, torch, device, 1)
+    split = leaf_split(app, sqs, kern)
+    walls = {1: {kind: tr[2] for kind, tr in traffic.items()}}
+
+    # the write: adds and seeded deletes committed inside an open window
+    live_ids = [e for e, _ in app.indexer.live_corpus()]
+    rng = np.random.default_rng(9)
+    deleted = [live_ids[i] for i in rng.choice(len(live_ids), STRUCT_DELETES, replace=False)]
+    corpus_g1 = app.indexer.live_corpus()
+    t_sub = app.runtime.clock + 1.0
+    half = N_QUERIES // 2
+    offsets = struct_offsets(N_QUERIES, seed=11)
+    pre = [app.submit(sq=q, k=K, facets=["cat"], fetch_docs=False, t_arrival=t_sub + float(off))
+           for q, off in zip(sqs[:half], offsets)]
+    t_w = t_sub + float(offsets[half - 1]) + 1e-3
+    require(app.add_documents(incoming, t_arrival=t_w).ok
+            and app.delete_documents(deleted, t_arrival=t_w).ok, "staging")
+    t0 = time.perf_counter()
+    c = app.commit(t_arrival=t_w)
+    t_commit = time.perf_counter() - t0
+    require(c.status == 200 and c.body["committed"] and c.body["gen"] == 2, f"commit {c.body}")
+    corpus_g2 = app.indexer.live_corpus()
+    pending = pool.submit(oracle_on_cpu, corpus_g2)
+    t_post = max(app.runtime.clock, t_w)
+    post = [app.submit(sq=q, k=K, facets=["cat"], fetch_docs=False,
+                       t_arrival=t_post + float(off - offsets[half - 1]))
+            for q, off in zip(sqs[half:], offsets[half:])]
+    app.flush()
+    print(f"[9] commit of {len(incoming)} adds and {STRUCT_DELETES} deletes inside an open "
+          f"window: host wall {t_commit:.2f} s, modeled {c.latency_s:.4f} s, merged "
+          f"{c.body['merged']}, {c.body['pings']} rollover pings; the window's {N_QUERIES} "
+          f"queries in {len({h.response.body['generation'] for h in pre + post})} generations",
+          flush=True)
+    window_check(pre, sqs[:half], oracle, corpus_g1, 1)
+    traffic2 = structured_traffic(app, sqs, bag, kern, 2)
+    launches.update({f"{kind} gen 2": tr[3] for kind, tr in traffic2.items()})
+    oracle2 = oracle_on(pending, device, "generation 2")
+    window_check(post, sqs[half:], oracle2, corpus_g2, 2)
+    print(f"[9] the window around the commit: {half} queries admitted before it answered from "
+          f"generation 1, {N_QUERIES - half} after it from generation 2, each == its "
+          f"generation's oracle", flush=True)
+    structured_checks(app, sqs, bag, traffic2, oracle2, 2, cfg.max_blocks * 128)
+    gone = {e for tr in traffic2.values() for body in tr[1] for e in body["ext_ids"]} & set(deleted)
+    require(not gone, f"deleted ext ids served: {sorted(gone)[:5]}")
+    evaluator_card_vs_cpu(app, cfg, sqs, torch, device, 2)
+    walls[2] = {kind: tr[2] for kind, tr in traffic2.items()}
+    for gen, w in walls.items():
+        p = {kind: (np.percentile(x[1:], 50), np.percentile(x[1:], 99)) for kind, x in w.items()}
+        print(f"[9] generation {gen} steady wall (queries 3-21): structured p50 {p['structured'][0]:.3f} ms p99 "
+              f"{p['structured'][1]:.3f} ms; bag-of-words p50 {p['bag-of-words'][0]:.3f} ms p99 "
+              f"{p['bag-of-words'][1]:.3f} ms; structured p99 / bag-of-words p99 "
+              f"{p['structured'][1] / p['bag-of-words'][1]:.2f} (B16's gate is 2, printed, "
+              f"not enforced)", flush=True)
+    print(f"[9] phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, split
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
@@ -1725,6 +2213,9 @@ def main() -> int:
     ap.add_argument("--recsys-only", action="store_true",
                     help="phases 1, 2 and 8 only (a shake-out of the recsys path; prints no "
                          "ok line)")
+    ap.add_argument("--structured-only", action="store_true",
+                    help="phases 1, 2 and 9 only (a shake-out of the structured tier and the "
+                         "write path; prints no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -1811,6 +2302,13 @@ def main() -> int:
         print(smi, flush=True)
         print("chip_smoke: --recsys-only, a partial run", flush=True)
         return 0
+    if args.structured_only:
+        st_launches, split = structured_phase(kern, torch)
+        print(json.dumps({"structured_only": {"launches_by_route": st_launches,
+                                              "device_us": split}}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --structured-only, a partial run", flush=True)
+        return 0
 
     # 3. data at real scale
     t0 = time.perf_counter()
@@ -1870,6 +2368,13 @@ def main() -> int:
     launches.update(rs_launches)
     print(f"[8] phases 1-8 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 9. the structured tier and the write path against oracles
+    gc.collect()
+    torch.cuda.empty_cache()
+    st_launches, split = structured_phase(kern, torch)
+    launches.update({f"phase 9 {route}": c for route, c in st_launches.items()})
+    print(f"[9] phases 1-9 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
     Q = len(queries)
     meta = {
         "K3": ("bm25_block_impacts", "src/repro_torch/kernels/csrc/bm25_block.cu",
@@ -1900,6 +2405,8 @@ def main() -> int:
     line["kernels"][2]["shapes"]["past the old range limit"] = case_entry(k1_wide)
     line["kernels"][1]["shapes"] = {"search": case_entry(rows["K2"][Q]),
                                     "bert4rec vocabulary": case_entry(results["bert4rec"]["k2_vocab"])}
+    line["kernels"][1]["structured_device_us"] = {
+        key: v for key, (v, _) in split.items()}
     line["kernels"].append({
         "name": "dot_topk_batch", "route": "cuda", "source": "src/repro_torch/kernels/csrc/dot_topk.cu",
         "replaces": "src/repro/kernels/dot_topk.py:69", "launches": launches["fleet:dense"]["K4"],

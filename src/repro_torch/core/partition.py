@@ -16,9 +16,7 @@ recent warm latencies.
 
 The mesh half of the reference module (``local_topk``, ``merge_topk``,
 ``shard_topk_merge``, ``partitioned_topk``) waits for the mesh path (ROADMAP
-Queue 1 item 6). Autoscaling (``ReplicationSpec(autoscale=...)``, item 5)
-and the structured tier (``IndexSpec(structured=True)`` or
-``facet_fields``, item 3) raise ``NotImplementedError``.
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -29,7 +27,8 @@ from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 from repro_torch.core.runtime import RetriesExhausted, nearest_rank_percentiles
 
-if TYPE_CHECKING:   # type-only: gateway/index/search import upward
+if TYPE_CHECKING:   # type-only: autoscale/gateway/index/search import upward
+    from repro_torch.core.autoscale import AutoscalePolicy
     from repro_torch.core.gateway import WindowPolicy
     from repro_torch.core.object_store import Backend
     from repro_torch.core.runtime import RuntimeConfig
@@ -192,7 +191,8 @@ def rrf_fuse(rankings: Sequence[Sequence[Any]], k: int, *,
 # enter (gateway), what is served (index, including the dense-vector tier),
 # and the runtime/search knobs. Validation happens ONCE at construction
 # (``FleetSpec.__post_init__``), not scattered through assembly code.
-# Imports are type-only (``TYPE_CHECKING``).
+# Imports are type-only (``TYPE_CHECKING``): core.autoscale imports this
+# module, so the spec duck-types its policy fields at runtime.
 
 
 @dataclasses.dataclass
@@ -202,8 +202,8 @@ class ReplicationSpec:
     replicas: int = 1
     # HedgePolicy, or a float shorthand for a fixed after_s threshold
     hedge: "HedgePolicy | float | None" = None
-    # AutoscalePolicy, or True for defaults, in the reference; any truthy
-    # value raises here until the autoscaler is ported
+    # AutoscalePolicy, or True for defaults (resolved at assembly — the
+    # policy class lives in core.autoscale, which imports this module)
     autoscale: "AutoscalePolicy | bool | None" = None
     # when a partition leg exhausts its retries: True merges the surviving
     # partitions' hits (a degraded but fast answer, flagged in the result);
@@ -213,9 +213,6 @@ class ReplicationSpec:
     def __post_init__(self) -> None:
         if self.replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {self.replicas}")
-        if self.autoscale:
-            raise NotImplementedError(
-                "fleet autoscaling is not ported yet: ROADMAP Queue 1 item 5")
         if isinstance(self.hedge, (int, float)) and not isinstance(
                 self.hedge, bool):
             self.hedge = HedgePolicy(after_s=float(self.hedge))
@@ -278,10 +275,6 @@ class IndexSpec:
     def __post_init__(self) -> None:
         self.facet_fields = tuple(self.facet_fields)
         self.structured = self.structured or bool(self.facet_fields)
-        if self.structured:
-            raise NotImplementedError(
-                "the structured (format-v2) tier is not ported yet: "
-                "ROADMAP Queue 1 item 3")
 
 
 @dataclasses.dataclass

@@ -13,8 +13,15 @@ depends on D alone, so per-partition fleet scores must be BIT-identical,
 not merely close. ``hybrid_oracle_fuse`` runs the same Reciprocal Rank
 Fusion the coordinator runs, over the two oracles' rankings.
 
-``StructuredOracleSearcher`` waits with the structured tier (ROADMAP
-Queue 1 item 3).
+:class:`StructuredOracleSearcher` extends the pin to the v2 structured
+surface: it packs the FULL corpus into one v2 segment and evaluates it on
+``device`` with the very same :mod:`repro_torch.search.structured`
+functions the fleet's partitions run — top-k scores must be BIT-identical
+through the merge, facet counts and phrase match sets exactly equal. Its
+``exact_*`` methods are an independent dict-based twin computed straight
+from raw text (applying the format's documented POS_SLOTS truncation rule),
+so tests can pin the packed evaluator against an implementation that shares
+none of its code.
 """
 
 from __future__ import annotations
@@ -99,6 +106,119 @@ class DenseOracleSearcher:
         vals, ids = dot_topk_batch_ref(q, self.vectors, min(k, n))
         return [(int(i), float(v))
                 for v, i in zip(vals[0].cpu().numpy(), ids[0].cpu().numpy())]
+
+
+class StructuredOracleSearcher:
+    """Exact structured retrieval over the full corpus — the fleet's pin
+    for fielded scoring, phrases, facets, and match sets.
+
+    Scores come from ONE full-corpus v2 pack evaluated by the shared
+    :func:`repro_torch.search.structured.evaluate_structured` (bit-parity with
+    the partitioned fleet is structural: every per-leaf input is global or
+    per-doc). The ``exact_*`` twins recompute match sets and facet counts
+    from raw text with the identical stored-occurrence truncation, sharing
+    no code with the packer — the independent cross-check."""
+
+    def __init__(self, docs: "list[tuple[str, Any]]", *,
+                 facet_fields: Sequence[str] = (), k1: float = 0.9,
+                 b: float = 0.4, device=None) -> None:
+        from repro_torch.index.builder import (IndexWriter, POS_SLOTS,
+                                               compute_global_stats, field_avgdl)
+        from repro_torch.search.structured import StructuredState
+        self.docs = list(docs)
+        self.doc_ids = [d for d, _ in self.docs]
+        self.pos_slots = POS_SLOTS
+        w = IndexWriter(k1=k1, b=b, structured=True,
+                        facet_fields=tuple(facet_fields))
+        for ext_id, text in self.docs:
+            w.add(ext_id, text)
+        self.packed = w.pack()
+        self.state = StructuredState.from_packed(self.packed,
+                                                 device=resolve_device(device))
+        stats = compute_global_stats(self.docs, fields=True)
+        self.field_avgdl = {f: field_avgdl(stats, f)
+                            for f in stats.get("fields", {})}
+
+    def _query(self, query):
+        from repro_torch.search.query import Query, parse_query
+        return query if isinstance(query, Query) else parse_query(query)
+
+    def evaluate(self, query) -> tuple["torch.Tensor", "torch.Tensor"]:
+        """(scores, eligible) over the full corpus, on the oracle's device."""
+        from repro_torch.search.structured import evaluate_structured
+        return evaluate_structured(self.state, self._query(query),
+                                   field_avgdl=self.field_avgdl)
+
+    def search(self, query, k: int = 10) -> list[tuple[int, float]]:
+        """Top-k (global doc index, f32 score), ties (-score, index) —
+        the same order the fleet's (-score, partition, doc_id) merge
+        induces on ``live_corpus()`` global indices."""
+        from repro_torch.search.structured import structured_topk
+        scores, _ = self.evaluate(query)
+        vals, ids = structured_topk(scores, k)
+        return [(int(i), float(v)) for v, i in zip(vals.cpu().numpy(), ids.cpu().numpy())
+                if v > 0.0]
+
+    def match_set(self, query) -> set[int]:
+        _, eligible = self.evaluate(query)
+        return set(torch.nonzero(eligible).reshape(-1).cpu().tolist())
+
+    def facet_counts(self, query, facet_field: str) -> dict[str, int]:
+        from repro_torch.search.structured import facet_counts
+        _, eligible = self.evaluate(query)
+        return facet_counts(self.state, eligible, facet_field)
+
+    # -- independent dict-based twins (no packed-array code shared) --------
+
+    def _stored_occurrences(self, text) -> dict[str, list[tuple[str, int]]]:
+        """term -> first POS_SLOTS (field, position) occurrences, in
+        tokenize_positions order — the format's truncation rule restated
+        from the raw text."""
+        from repro_torch.index.tokenizer import tokenize_positions
+        occ: dict[str, list[tuple[str, int]]] = {}
+        for fld, tok, pos in tokenize_positions(text):
+            lst = occ.setdefault(tok, [])
+            if len(lst) < self.pos_slots:
+                lst.append((fld, pos))
+        return occ
+
+    def _leaf_matches(self, leaf, text) -> bool:
+        occ = self._stored_occurrences(text)
+        if leaf.kind == "term":
+            t = leaf.terms[0]
+            if leaf.field is None:
+                return t in occ      # every present term stores ≥1 occurrence
+            return any(f == leaf.field for f, _ in occ.get(t, ()))
+        sets = [set(occ.get(t, ())) for t in leaf.terms]
+        if not all(sets):
+            return False
+        for f, p in sets[0]:
+            if leaf.field is not None and f != leaf.field:
+                continue
+            if all((f, p + i) in sets[i] for i in range(1, len(sets))):
+                return True
+        return False
+
+    def exact_match_set(self, query) -> set[int]:
+        q = self._query(query)
+        if not q.leaves:
+            return set()
+        out = set()
+        for i, (_, text) in enumerate(self.docs):
+            hits = sum(self._leaf_matches(lf, text) for lf in q.leaves)
+            ok = hits == len(q.leaves) if q.conjunctive else hits > 0
+            if ok:
+                out.add(i)
+        return out
+
+    def exact_facet_counts(self, query, facet_field: str) -> dict[str, int]:
+        from repro_torch.index.tokenizer import field_items
+        counts: dict[str, int] = {}
+        for i in self.exact_match_set(query):
+            val = dict(field_items(self.docs[i][1])).get(facet_field)
+            if val:
+                counts[str(val)] = counts.get(str(val), 0) + 1
+        return counts
 
 
 def hybrid_oracle_fuse(sparse_ranked: Sequence[tuple[int, float]],

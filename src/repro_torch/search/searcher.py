@@ -9,9 +9,9 @@ The pieces assemble exactly like Figure 1 of the paper:
                          └─ fetch raw docs  ← KVStore (DynamoDB)
 
 Eager and lazy hydration, plain versions and NRT generation manifests, the
-sparse, dense and hybrid tiers and rollover prewarm pings are served.
-Structured ``sq``/``sqs`` payloads are refused with ``NotImplementedError``
-(ROADMAP Queue 1 item 3), never answered some other way.
+sparse, dense and hybrid tiers, structured ``sq``/``sqs`` queries (evaluated
+on the searcher's device, :mod:`repro_torch.search.structured`) and rollover
+prewarm pings are served.
 """
 
 from __future__ import annotations
@@ -36,6 +36,10 @@ from repro_torch.index.tokenizer import tokenize
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.dot_topk import dot_topk_batch
 from repro_torch.search.bm25 import SearchState, encode_queries, make_search_fn
+from repro_torch.search.query import Query, query_from_payload
+from repro_torch.search.structured import (StructuredState, StructuredUnsupported,
+                                           evaluate_structured, facet_counts,
+                                           structured_topk)
 
 
 @dataclasses.dataclass
@@ -91,6 +95,7 @@ class Searcher:
         self.packed = packed
         self.state = SearchState.from_packed(packed, self.device)
         self.vocab = packed.vocab
+        self._structured: StructuredState | None = None
         cfg = self.config
         self._fn = make_search_fn(
             packed.meta.n_docs, max_terms=cfg.max_terms,
@@ -126,6 +131,46 @@ class Searcher:
 
     def search_one(self, query: str, k: int | None = None):
         return self.search_batch([query], k)[0]
+
+    @property
+    def structured(self) -> StructuredState:
+        """The v2 sidecar on this searcher's device, built on the first
+        structured query (a lazy view that grows drops the whole Searcher,
+        so this state can never outlive the view it was built from)."""
+        if self.packed.fields is None:
+            raise StructuredUnsupported(
+                "structured query against a v1 segment (publish "
+                "with IndexSpec(structured=True, ...))")
+        if self._structured is None:
+            self._structured = StructuredState.from_packed(self.packed, self.state)
+        return self._structured
+
+    def search_structured(self, queries: list[Query], k: int, *,
+                          field_avgdl: dict, facets: list[list[str]]
+                          ) -> tuple[list[list[tuple[int, float]]], list[dict]]:
+        """Evaluate structured ASTs on the device: each query's dense scores
+        and eligibility, then ONE top-k over the stacked (Q, n_docs) scores
+        and one facet count per requested field over the stacked
+        eligibility. Returns per-query hit lists and {field: {value: count}}
+        dicts, as the reference's handler builds them."""
+        state = self.structured
+        if not queries:
+            return [], []
+        n = state.n_docs
+        evals = [evaluate_structured(state, q, field_avgdl=field_avgdl)
+                 for q in queries]
+        scores = torch.stack([s for s, _ in evals])
+        eligible = torch.stack([e for _, e in evals])
+        with torch.profiler.record_function("structured.topk"):
+            vals, ids = structured_topk(scores, k)
+        with torch.profiler.record_function("structured.facets"):
+            counts = {f: facet_counts(state, eligible, f)
+                      for f in dict.fromkeys(f for req in facets for f in req)}
+        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+        hits = [[(int(i), float(v)) for v, i in zip(vals[qi], ids[qi])
+                 if i < n and v > 0] for qi in range(len(queries))]
+        return hits, [{f: counts[f][qi] for f in req}
+                      for qi, req in enumerate(facets)]
 
 
 def hydrate_searcher(catalog: AssetCatalog, asset: str,
@@ -372,8 +417,10 @@ class LazySearcher:
             {t for q in queries for t in tokenize(q)})
 
     def ensure_terms(self, terms) -> tuple[bool, float]:
-        """Hydrate specific terms' posting blocks; priced exactly like
-        :meth:`ensure_queries`."""
+        """Hydrate specific terms' posting blocks — the structured path
+        hands in its ASTs' term set directly (the same coalesced ranged
+        GETs also pull those rows' field/position payload on v2
+        segments). Priced exactly like :meth:`ensure_queries`."""
         terms = set(terms)
         return self._billed(lambda: self.index.ensure_terms(terms))
 
@@ -462,9 +509,18 @@ def make_search_handler(catalog: AssetCatalog, doc_store: KVStore,
     seen it yet. Unpinned payloads resolve the asset manifest's current
     version (the single-function app's path).
 
-    Structured ``sq``/``sqs`` payloads raise ``NotImplementedError``
-    (ROADMAP Queue 1 item 3). ``device`` (None → the card) is where every
-    hydrated searcher lives.
+    STRUCTURED payloads carry ``sq`` (one AST payload dict) or ``sqs`` (a
+    micro-batch of them) instead of text — the coordinator parsed the DSL
+    at admission; workers never re-parse. They evaluate on the searcher's
+    device over the v2 packed arrays (:meth:`Searcher.search_structured`,
+    bit-identical across partitioning and to the reference), honouring
+    ``facets`` (per-query facet-field requests, counted over the full
+    eligible set) and ``favg`` (the generation's live per-field avgdls).
+    Requires a segment published with field/position data — a structured
+    payload against a v1 segment raises
+    :class:`~repro_torch.search.structured.StructuredUnsupported`.
+
+    ``device`` (None → the card) is where every hydrated searcher lives.
     """
     cfg = config or SearchConfig()
     lazy = bool(cfg.lazy_hydration)   # None (resolver's choice) → eager
@@ -517,40 +573,68 @@ def make_search_handler(catalog: AssetCatalog, doc_store: KVStore,
                 cache.get_or_hydrate(asset, version + "+vec", _hydrate_dense)
             return {"version": version, "prewarmed": True}, 0.0
 
-        if "sq" in payload or "sqs" in payload:
-            raise NotImplementedError(
-                "structured sq/sqs payloads are not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         need_sparse = mode in ("sparse", "hybrid")
         need_dense = mode in ("dense", "hybrid")
-        batched = "queries" in payload or "qvs" in payload
+        batched = ("queries" in payload or "qvs" in payload
+                   or "sqs" in payload)
         queries = (list(payload["queries"]) if "queries" in payload
                    else [payload["q"]] if "q" in payload else [])
         qvecs = (list(payload["qvs"]) if "qvs" in payload
                  else [payload["qv"]] if "qv" in payload else [])
+        # structured (format-v2) queries arrive as admission-parsed AST
+        # payloads (sq/sqs) — never re-parsed here — with per-query facet
+        # requests and the generation's live field avgdls (favg)
+        sq_payloads = (list(payload["sqs"]) if "sqs" in payload
+                       else [payload["sq"]] if "sq" in payload else None)
+        if sq_payloads is not None and mode != "sparse":
+            raise StructuredUnsupported(
+                "structured queries are sparse-tier only")
         k = int(payload.get("k", cfg.k))
-        n_q = len(qvecs) if mode == "dense" else len(queries)
+        n_q = (len(sq_payloads) if sq_payloads is not None
+               else len(qvecs) if mode == "dense" else len(queries))
         if need_dense and len(qvecs) != n_q:
             raise ValueError("hybrid query needs one vector per text query")
 
         t0 = time.perf_counter()
         exec_s = 0.0
-        sparse_hits = dense_hits = None
+        sparse_hits = dense_hits = facets_out = None
         searcher = dsearcher = None
         entry = None
         if need_sparse:
             entry = cache.get_or_hydrate(asset, version, _hydrate)
-            if isinstance(entry, LazySearcher):
-                # pull exactly this batch's term blocks — on the critical
-                # path, so it accounts as hydration (a warm instance whose
-                # view already covers the terms pays nothing here)
-                changed, sim_s = entry.ensure_queries(queries)
-                if changed:
-                    cache.note_hydration(sim_s)
-                searcher = entry.searcher
+            if sq_payloads is not None:
+                queries_ast = [query_from_payload(d) for d in sq_payloads]
+                if isinstance(entry, LazySearcher):
+                    # pull exactly the ASTs' term blocks — the same
+                    # coalesced ranged GETs bring the v2 field/position
+                    # rows along at the wider pitch
+                    changed, sim_s = entry.ensure_terms(
+                        {t for q in queries_ast for t in q.terms})
+                    if changed:
+                        cache.note_hydration(sim_s)
+                    searcher = entry.searcher
+                else:
+                    searcher = entry
+                # evaluated on the device's dense path — ALWAYS, even on
+                # pruned fleets: field/phrase-modified impacts invalidate
+                # the v1 block_max ceilings, so block-max pruning would be
+                # unsound for structured queries
+                sparse_hits, facets_out = searcher.search_structured(
+                    queries_ast, k, field_avgdl=payload.get("favg") or {},
+                    facets=payload.get("facets") or [[]] * n_q)
             else:
-                searcher = entry
-            sparse_hits = searcher.search_batch(queries, k)
+                if isinstance(entry, LazySearcher):
+                    # pull exactly this batch's term blocks — on the
+                    # critical path, so it accounts as hydration (a warm
+                    # instance whose view already covers the terms pays
+                    # nothing here)
+                    changed, sim_s = entry.ensure_queries(queries)
+                    if changed:
+                        cache.note_hydration(sim_s)
+                    searcher = entry.searcher
+                else:
+                    searcher = entry
+                sparse_hits = searcher.search_batch(queries, k)
             if cfg.sim_exec_s is not None:
                 exec_s += (cfg.sim_exec_s
                            + cfg.sim_exec_per_query_s * (n_q - 1)
@@ -597,6 +681,10 @@ def make_search_handler(catalog: AssetCatalog, doc_store: KVStore,
                 "ext_ids": ext_ids,
                 "docs": [raw.get(e) for e in ext_ids] if raw else [],
             }
+            if facets_out is not None:
+                # per-partition scatter-add over the FULL eligible match
+                # set; the coordinator merges these at gather like top-k
+                r["facets"] = facets_out[qi]
             if mode == "hybrid":
                 dh = dense_hits[qi]
                 r["dense"] = {

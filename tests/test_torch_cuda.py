@@ -581,3 +581,114 @@ def test_kernels_refuse_wrong_dtypes(cuda):
     q = torch.zeros(1, 2, 4, 16, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError, match="f32 or bf16"):
         flash_attention(q, q, q)
+
+
+# -- the structured evaluator and a commit on the card ------------------------------
+
+
+def _fielded(n, seed):
+    from repro_torch.data.corpus import synth_fielded_corpus
+    docs = synth_fielded_corpus(n, vocab=n // 2, seed=seed)
+    # one doc whose positions run past the uint16 clamp
+    return docs + [("far", {"title": "far away", "body": " ".join(["filler"] * 65_530)
+                            + " alpha beta gamma alpha beta gamma", "cat": "c0"})]
+
+
+def test_structured_evaluator_on_card_equals_cpu(cuda):
+    """``evaluate_structured`` on the card equals the same function on the
+    CPU (scores and eligibility bitwise, facets exact) for term, fielded,
+    phrase and scoped-phrase leaves, and the batch's top-k — one K2 call on
+    the card — equals the CPU twin's ids and score bits."""
+    from repro_torch.data.corpus import synth_structured_queries
+    from repro_torch.index.builder import IndexWriter, compute_global_stats, field_avgdl
+    from repro_torch.search.query import parse_query
+    from repro_torch.search.structured import (StructuredState, evaluate_structured,
+                                               facet_counts, structured_topk)
+    docs = _fielded(4000, seed=5)
+    w = IndexWriter(structured=True, facet_fields=("cat",))
+    w.add_many(docs)
+    packed = w.pack()
+    card = StructuredState.from_packed(packed, device=cuda)
+    cpu = StructuredState.from_packed(packed, device="cpu")
+    stats = compute_global_stats(docs, fields=True)
+    favg = {f: field_avgdl(stats, f) for f in stats["fields"]}
+    qs = synth_structured_queries(docs, 40, seed=16) + [
+        '"alpha beta"', '"beta gamma"', 'body:"gamma alpha beta"', "filler^2 OR title:far"]
+    got, want = [], []
+    for sq in qs:
+        a, ea = evaluate_structured(card, parse_query(sq), field_avgdl=favg)
+        b, eb = evaluate_structured(cpu, parse_query(sq), field_avgdl=favg)
+        assert _bits(a, b) and _bits(ea, eb), sq
+        assert facet_counts(card, ea, "cat") == facet_counts(cpu, eb, "cat"), sq
+        got.append(a)
+        want.append(b)
+    topk.launches = 0
+    gv, gi = structured_topk(torch.stack(got), 100)
+    assert topk.launches > 0
+    wv, wi = structured_topk(torch.stack(want), 100)
+    assert _bits(gv, wv) and _bits(gi, wi)
+
+
+def test_commit_on_the_card_matches_the_cpu(cuda):
+    """The same structured fleet with a dense tier on the card and on the
+    CPU (pruned + kernels, modeled clock): every response — sparse, dense,
+    hybrid and structured with facets — and every commit body is equal,
+    through a commit of adds and deletes inside an open window, and no
+    deleted id is served after it."""
+    from repro_torch.core.gateway import WindowPolicy
+    from repro_torch.core.partition import (FleetSpec, GatewaySpec, IndexSpec,
+                                            ReplicationSpec, VectorSpec)
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.data.corpus import synth_queries, synth_structured_queries
+    from repro_torch.index.tokenizer import flatten_text
+    from repro_torch.search.searcher import SearchConfig
+    from repro_torch.search.service import build_partitioned_search_app
+    docs = _fielded(3000, seed=7)[:-1]
+    base, incoming = docs[:2600], docs[2600:]
+    sqs = synth_structured_queries(base, 12, seed=16)
+    bag = synth_queries([(e, flatten_text(t)) for e, t in base], 12, seed=17)
+
+    def build(device):
+        return build_partitioned_search_app(base, FleetSpec(
+            n_parts=4, replication=ReplicationSpec(replicas=2),
+            gateway=GatewaySpec(window=WindowPolicy(max_window_s=0.5, sparse_qps=0.0)),
+            index=IndexSpec(structured=True, facet_fields=("cat",),
+                            vector=VectorSpec(dim=64)),
+            search_config=SearchConfig(accumulator="pruned", use_kernel=True,
+                                       use_topk_kernel=True, k=20, sim_exec_s=0.002,
+                                       sim_write_s=0.02),
+            runtime_config=RuntimeConfig(seed=0)), device=device)
+
+    def run(app):
+        out = []
+        for q, sq in zip(bag, sqs):
+            for mode in ("sparse", "dense", "hybrid"):
+                out.append(app.query(q, k=10, mode=mode, t_arrival=app.runtime.clock + 0.05))
+            out.append(app.query(sq=sq, k=10, facets=["cat"], snippets=True,
+                                 t_arrival=app.runtime.clock + 0.05))
+        t0 = app.runtime.clock + 1.0
+        pre = [app.submit(sq=sq, k=10, facets=["cat"], t_arrival=t0 + 0.001 * i)
+               for i, sq in enumerate(sqs[:6])]
+        out.append(app.add_documents(incoming, t_arrival=t0 + 0.01))
+        out.append(app.delete_documents([e for e, _ in base[::13]], t_arrival=t0 + 0.01))
+        out.append(app.commit(t_arrival=t0 + 0.02))
+        post = [app.submit(sq=sq, k=10, facets=["cat"], t_arrival=app.runtime.clock + 0.001 * i)
+                for i, sq in enumerate(sqs[6:])]
+        app.flush()
+        out += [h.response for h in pre + post]
+        for q, sq in zip(bag, sqs):
+            for mode in ("sparse", "dense", "hybrid"):
+                out.append(app.query(q, k=10, mode=mode, t_arrival=app.runtime.clock + 0.05))
+            out.append(app.query(sq=sq, k=10, facets=["cat"], t_arrival=app.runtime.clock + 0.05))
+        return out
+
+    on_card, on_cpu = run(build(cuda)), run(build("cpu"))
+    assert len(on_card) == len(on_cpu)
+    for a, b in zip(on_card, on_cpu):
+        assert (a.status, a.latency_s, a.body) == (b.status, b.latency_s, b.body)
+    committed = next(r for r in on_card if r.body.get("committed"))
+    assert committed.body["gen"] == 2 and not committed.body["merged"]
+    deleted = {e for e, _ in base[::13]}
+    after = [r for r in on_card if r.body.get("generation") == 2]
+    assert len(after) == 6 + 4 * len(sqs)
+    assert not deleted & {e for r in after for e in r.body["ext_ids"]}

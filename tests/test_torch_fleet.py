@@ -9,7 +9,6 @@ hybrid (RRF) exactly equal; dense within ``1e-6 · Σ_d |c_d·q_d|`` with ids
 equal except inside the reference's own tolerance ties (the reference's
 XLA dot order cannot be reproduced). Inside the port, dense answers equal
 the full-corpus oracle bitwise and windowed answers equal serial ones.
-What the port does not serve yet raises ``NotImplementedError``.
 """
 
 import dataclasses
@@ -317,34 +316,3 @@ def test_fleet_defaults_to_lazy_hydration(corpus, queries):
     assert r.body["ext_ids"] == r2.body["ext_ids"]
     assert (np.float32(r.body["scores"]).view(np.uint32).tolist()
             == np.float32(r2.body["scores"]).view(np.uint32).tolist())
-
-
-# -- what is not ported yet is refused, never answered another way -----------------
-
-
-def test_unported_fleet_paths_raise_not_implemented(corpus):
-    t = t_build(corpus[:60], _spec(tp, n_parts=2), device="cpu")
-    for call in (lambda: t.add_documents([("x", "bi")]),
-                 lambda: t.delete_documents(["doc0"]),
-                 lambda: t.commit(),
-                 lambda: t.indexer.stage_add([("x", "bi")]),
-                 lambda: t.indexer.stage_delete(["doc0"]),
-                 lambda: t.indexer.commit(t.fn_groups),
-                 lambda: t.indexer.fork(1),
-                 lambda: t.indexer.sync(),
-                 lambda: t.runtime._handlers["indexer-p0"](None, {"op": "delta", "gen": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            call()
-    r = t.gateway.request("POST", "/index", {"op": "commit"})
-    assert r.status == 502 and "ROADMAP Queue 1 item 5" in r.body["error"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        tp.ReplicationSpec(autoscale=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"), \
-            pytest.warns(DeprecationWarning):
-        t_build(corpus[:60], n_parts=2, autoscale=True, device="cpu")
-    for kw in ({"structured": True}, {"facet_fields": ("cat",)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            tp.IndexSpec(**kw)
-    from repro_torch.core.cache import HydrationCache
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        t.runtime._handlers["search-p0"](HydrationCache(1 << 30), {"sq": {"op": "term"}})

@@ -42,6 +42,9 @@ def test_every_module_imports_without_jax_or_repro():
                   "repro_torch.configs.fm", "repro_torch.configs.dcn_v2",
                   "repro_torch.configs.bst", "repro_torch.configs.bert4rec"]
         assert set(recsys) <= set(names), sorted(set(recsys) - set(names))
+        structured = ["repro_torch.search.query", "repro_torch.search.structured",
+                      "repro_torch.core.autoscale"]
+        assert set(structured) <= set(names), sorted(set(structured) - set(names))
         spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -53,7 +56,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 52          # every module was walked
+    assert int(out.stdout.strip()) >= 55          # every module was walked
 
 
 def test_sources_name_neither_jax_nor_repro():
@@ -75,13 +78,15 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.search.bm25 import SearchState
     from repro_torch.data.corpus import hash_embedder
-    from repro_torch.search.oracle import DenseOracleSearcher
+    from repro_torch.search.oracle import DenseOracleSearcher, StructuredOracleSearcher
     from repro_torch.search.searcher import DenseSearcher, Searcher, make_search_handler
     from repro_torch.search.service import build_partitioned_search_app, build_search_app
+    from repro_torch.search.structured import StructuredState
     docs = synth_corpus(20, vocab=50, seed=1)
     w = IndexWriter()
     w.add_many(docs)
     packed = w.pack()
+    fielded = [(e, {"title": t[:10], "body": t}) for e, t in docs]
     vecs = np.zeros((20, 4), np.float32)
     for call in (lambda: resolve_device(None),
                  lambda: SearchState.from_packed(packed),
@@ -90,10 +95,14 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
                  lambda: DenseOracleSearcher(docs, hash_embedder(4)),
                  lambda: make_search_handler(None, None),
                  lambda: build_search_app(docs),
-                 lambda: build_partitioned_search_app(docs, 2)):
+                 lambda: build_partitioned_search_app(docs, 2),
+                 lambda: StructuredState.from_packed(packed),
+                 lambda: StructuredOracleSearcher(fielded)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert Searcher(packed, device="cpu").search_one(docs[0][1].split()[0])
+    oracle = StructuredOracleSearcher(fielded, device="cpu")
+    assert oracle.state.device.type == "cpu" and oracle.search(docs[0][1].split()[0])
 
 
 def test_lm_entry_points_need_a_card_unless_asked_for_cpu():

@@ -2,8 +2,7 @@
 
 Same corpus, same modeled clock (``sim_exec_s``), same runtime seed: every
 response, modeled latency, hydration charge, ledger line and cache byte
-count must match; scores at ``rtol=1e-6``. What the port does not serve
-yet raises ``NotImplementedError`` — it never answers another way.
+count must match; scores at ``rtol=1e-6``.
 """
 
 import dataclasses
@@ -105,19 +104,6 @@ def test_probes_match_reference(corpus):
     assert t.gateway.request("GET", "/search", {"k": 3}).status == 502
 
 
-def test_unported_paths_raise_not_implemented(corpus):
-    """Structured payloads (``sq``, ``sqs``) wait for the structured tier
-    and are refused with ``NotImplementedError`` — never answered another
-    way."""
-    from repro_torch.core.cache import HydrationCache
-    t = t_build(corpus[:50], search_config=TSearchConfig(sim_exec_s=0.01), device="cpu")
-    handler, cache = t.runtime._handlers["search"], HydrationCache(1 << 30)
-    for payload in ({"sq": {"op": "term", "term": "bi"}},
-                    {"sqs": [{"op": "term", "term": "bi"}]}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            handler(cache, payload)
-
-
 def test_dense_payloads_on_single_app_match_reference(corpus):
     """The single-function app has no dense tier: dense and hybrid payloads
     raise ``DenseTierMissing`` in both packages, and the gateway answers
@@ -155,25 +141,6 @@ def test_prewarm_and_lazy_hydration_match_reference(corpus):
     for q in ("bi", ["bi bo", "zzz"]):
         _assert_same_response(t_lazy.query(q, k=10), j_lazy.query(q, k=10))
     assert dataclasses.asdict(t_lazy.runtime.ledger) == dataclasses.asdict(j_lazy.runtime.ledger)
-
-
-def test_generation_manifest_raises_not_implemented(corpus):
-    """Writing a new generation manifest is the write path, which waits: a
-    fleet's commit, its writer functions and ``POST /index`` refuse with
-    ``NotImplementedError``, and the published generation stays served."""
-    from repro_torch.core.partition import FleetSpec
-    from repro_torch.search.service import build_partitioned_search_app
-    t = build_partitioned_search_app(corpus[:60], FleetSpec(n_parts=2), device="cpu")
-    before = t.query("bi", k=3).body
-    for call in (lambda: t.commit(), lambda: t.indexer.commit(t.fn_groups),
-                 lambda: t.runtime._handlers["indexer-p0"](None, {"op": "delta", "gen": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            call()
-    r = t.gateway.request("POST", "/index", {"op": "commit"})
-    assert r.status == 502 and "ROADMAP Queue 1 item 5" in r.body["error"]
-    after = t.query("bi", k=3).body
-    assert after["generation"] == before["generation"] == t.indexer.gen == 1
-    assert after["ext_ids"] == before["ext_ids"] and after["ext_ids"]
 
 
 def test_generation_manifest_matches_reference(corpus):
