@@ -11,6 +11,7 @@ NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --k1-k6-only    # phases 1, 2, then K1 and K6 alone (no ok line)
     python3 chip_smoke.py --k3-only       # phases 1, 2, then K3 alone (no ok line)
     python3 chip_smoke.py --structured-only  # phases 1, 2 and 9 (no ok line)
+    python3 chip_smoke.py --mesh-only     # phases 1, 2 and 10 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -123,6 +124,23 @@ Phases (each raises on failure; the script then exits non-zero):
      p50/p99 of both kinds per generation and their p99 ratio, and the
      evaluator's device time a query by leaf kind, K2's beside it, from a
      profiler window of 5 warm structured queries.
+ 10. the paper's §3 mesh path (``search/distributed.py``) at the anlessini
+     geometry, ``configs/anlessini.py::full_config(256)``: 256 partitions of
+     34,560 docs and 15,360 blocks of 128, vocab 2^19, 16 terms, 32 blocks a
+     term, k 100, stacked on the card as a (16, 16) ("data", "model") mesh.
+     The state is made from a seed straight into ``stack_partitions``'
+     layout (``anlessini_state``: impact-ordered blocks, global idf and
+     avgdl). For ``serve_q1`` and ``serve_q64``, both accumulators and both
+     gathers, the launch counters around each call (K2 alone: the local
+     top-k over (256·Q, 34,560) and the merge over (Q, 25,600)): pruned ==
+     dense bitwise, fused == hierarchical but for ties, four partitions run
+     one at a time == the stacked body, the merge == K2 == its twin over the
+     gathered survivors; wall p50/p99 over 20 warm batches, peak memory, a
+     profiler window, K2 at the mesh's shapes beside ``torch.topk``, its
+     twin and its bound. Then bert4rec at ``full_config()`` under
+     ``sharded_topk`` on a stacked (1, 4) mesh, 512 rows: ids and value bits
+     of ``sharded_topk=False``; fm's 2^20 × 10 table through
+     ``sharded_lookup_shardmap`` on a stacked (2, 4) mesh == ``index_select``.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -144,6 +162,8 @@ chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
 
 ``--structured-only`` runs phases 1-2 and then phase 9.
 
+``--mesh-only`` runs phases 1-2 and then phase 10.
+
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the JAX package ``repro``.
@@ -155,6 +175,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2195,6 +2216,345 @@ def _structured_phase(kern, torch, device, n_docs, pool):
     return launches, split
 
 
+# -- phase 10: the paper's §3 mesh path at the anlessini geometry ------------------------
+
+MESH_PARTS = 256               # the dry-run's 256 chips
+MESH_SHAPE = (16, 16)          # ... as a ("data", "model") mesh, stacked on the one card
+MESH_AXES = ("data", "model")
+MESH_REPS = 20                 # warm batches timed per (shape, accumulator)
+MESH_SAMPLE = (0, 17, 130, 255)    # partitions re-run one at a time
+MESH_ZIPF, MESH_DOC_LEN = 1.3, 60  # synth_corpus's term model and passage length
+MESH_CHUNK = 32                # partitions packed at a time while the state is made
+MESH_K1, MESH_B = 0.9, 0.4     # IndexWriter's defaults
+MESH_GEOMETRY_POSTINGS = 495_000_000   # configs/anlessini.py: ~495M postings in all
+
+
+def anlessini_terms(cfg, seed: int = 0):
+    """The term layout every partition shares: ``synth_corpus``'s Zipf(1.3)
+    token model at 60 tokens a passage gives each rank's expected df in
+    ``n_docs_local`` passages; ranks take blocks of 128 in order until the
+    geometry's ``n_blocks_local`` is spent (the rest is padding), and a
+    seeded permutation maps ranks to term ids. Every term pads its last
+    block, and most live terms are rare, so the blocks hold about half the
+    postings the geometry's ~495M (98 % of its lanes) would put in a
+    partition: the array shapes are the geometry's, the postings the term
+    model's. Returns (df by term id (V,), term_offsets (V + 1,), the live
+    ranks' term ids and token probabilities)."""
+    n, NB, B, V = cfg.n_docs_local, cfg.n_blocks_local, cfg.block, cfg.vocab
+    p = np.arange(1, V + 1, dtype=np.float64) ** -MESH_ZIPF
+    p /= p.sum()
+    df = np.minimum(n, np.maximum(1, np.rint(n * -np.expm1(-MESH_DOC_LEN * p)))).astype(np.int64)
+    blocks = -(-df // B)
+    live = int(np.searchsorted(np.cumsum(blocks), NB, side="right"))
+    ids = np.random.default_rng(seed).permutation(V)[:live]
+    df_by_id = np.zeros(V, np.int64)
+    df_by_id[ids] = df[:live]
+    offsets = np.zeros(V + 1, np.int64)
+    offsets[1:] = np.cumsum(-(-df_by_id // B))
+    return df_by_id, offsets, ids, p[:live] / p[:live].sum()
+
+
+def anlessini_state(cfg, torch, device, seed: int = 0):
+    """``stack_partitions``' layout at the anlessini geometry, made from a
+    seed on the card instead of packing 8.8M passages through
+    ``IndexWriter``: per partition and live term, ``df`` distinct docs
+    (``(a·j + c) mod n`` with a a unit mod n), tf ~ 1 + Geometric(0.6),
+    doc lengths ~ ``synth_corpus``'s lognormal; global idf and avgdl; each
+    term's postings sorted by f64 impact (stable, as ``IndexWriter.pack``)
+    and cut into blocks of 128 whose ``block_max`` is the f32 of the
+    largest; pad lanes and blocks docs = n_docs_local, tf = 0."""
+    n, NB, B, V, P_ = cfg.n_docs_local, cfg.n_blocks_local, cfg.block, cfg.vocab, cfg.n_parts
+    df_by_id, offsets, live_ids, probs = anlessini_terms(cfg, seed)
+    live = np.flatnonzero(df_by_id)                      # id order
+    counts = df_by_id[live]
+    n_post = int(counts.sum())
+    term = np.repeat(np.arange(len(live)), counts)       # posting → live-term index
+    j = np.arange(n_post) - np.repeat(np.cumsum(counts) - counts, counts)
+    dest = offsets[live][term] * B + j                   # flat (block, lane) slot
+    first = j % B == 0
+    rng = np.random.default_rng(seed + 1)
+    a = 30 * rng.integers(0, n // 30, (P_, len(live))) + 1
+    require(bool((np.gcd(a, n) == 1).all()), "a step is not a unit mod n_docs_local")
+    c = rng.integers(0, n, (P_, len(live)))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    doc_len = torch.ones(P_, n + 1, dtype=torch.float32, device=device)
+    z = torch.randn(P_, n, generator=gen, device=device, dtype=torch.float64)
+    doc_len[:, :n] = torch.clamp(torch.floor(torch.exp(math.log(MESH_DOC_LEN) + 0.4 * z)),
+                                 min=4).float()
+    avgdl = float(np.float32(doc_len[:, :n].double().mean().item()))
+    N, df_g = P_ * n, P_ * df_by_id.astype(np.float64)
+    idf = np.log(1.0 + (N - df_g + 0.5) / (df_g + 0.5)).astype(np.float32)
+    term_t = torch.as_tensor(term, device=device)
+    j_t = torch.as_tensor(j, device=device)
+    dest_t = torch.as_tensor(dest, device=device)
+    first_t = torch.as_tensor(first, device=device)
+    bmax_dest = torch.as_tensor(dest[first] // B, device=device)
+    idf_live = torch.as_tensor(idf[live], device=device).double()
+    state = {
+        "term_offsets": torch.as_tensor(offsets.astype(np.int32), device=device)
+        .expand(P_, V + 1).contiguous(),
+        "block_docs": torch.full((P_, NB, B), n, dtype=torch.int32, device=device),
+        "block_tf": torch.zeros(P_, NB, B, dtype=torch.uint8, device=device),
+        "block_max": torch.zeros(P_, NB, dtype=torch.float32, device=device),
+        "doc_len": doc_len,
+        "idf": torch.as_tensor(idf, device=device),
+        "params": torch.tensor([MESH_K1, MESH_B, avgdl], dtype=torch.float32, device=device),
+    }
+    for lo in range(0, P_, MESH_CHUNK):
+        hi = min(P_, lo + MESH_CHUNK)
+        at = torch.as_tensor(a[lo:hi], device=device)[:, term_t]
+        ct = torch.as_tensor(c[lo:hi], device=device)[:, term_t]
+        docs = (at * j_t + ct) % n                                       # (C, n_post)
+        u = torch.rand(hi - lo, n_post, generator=gen, device=device, dtype=torch.float64)
+        tf = torch.clamp(1 + torch.floor(torch.log1p(-u) / math.log(0.4)), max=40)
+        dl = torch.gather(doc_len[lo:hi], 1, docs).double()
+        imp = idf_live[term_t] * tf / (tf + MESH_K1 * (1 - MESH_B + MESH_B * dl / avgdl))
+        o1 = torch.sort(-imp, dim=1, stable=True).indices
+        order = torch.gather(o1, 1, torch.sort(term_t[o1], dim=1, stable=True).indices)
+        docs, tf, imp = (torch.gather(x, 1, order) for x in (docs, tf, imp))
+        state["block_docs"][lo:hi].view(hi - lo, -1)[:, dest_t] = docs.int()
+        state["block_tf"][lo:hi].view(hi - lo, -1)[:, dest_t] = tf.to(torch.uint8)
+        state["block_max"][lo:hi][:, bmax_dest] = imp[:, first_t].float()
+    blocks = -(-counts // B)
+    return state, dict(live_ids=live_ids, probs=probs, offsets=offsets, df=df_by_id,
+                       n_post=n_post,
+                       n_terms=len(live), multi=int((blocks > 1).sum()),
+                       multi_blocks=int(blocks[blocks > 1].sum()), largest=int(blocks.max()))
+
+
+def anlessini_queries(terms: dict, Q: int, max_terms: int, seed: int):
+    """``Q`` queries of 16 tokens drawn from the live terms' token
+    probabilities (``synth_queries``' width of a query is its 16 token
+    positions here), encoded as ``encode_queries`` does: distinct terms
+    with their counts as qtf, padded with -1."""
+    from collections import Counter
+    rng = np.random.default_rng(seed)
+    tids = np.full((Q, max_terms), -1, np.int32)
+    qtf = np.zeros((Q, max_terms), np.float32)
+    for q in range(Q):
+        toks = terms["live_ids"][rng.choice(len(terms["probs"]), 16, p=terms["probs"])]
+        for j, (t, c) in enumerate(Counter(toks.tolist()).items()):
+            tids[q, j], qtf[q, j] = t, c
+    return tids, qtf
+
+
+def gathered_order(hierarchical: bool) -> list:
+    """The partitions' order along a gathered row: the fused gather's is
+    row-major over (data, model); the hierarchical one (data, then model)
+    puts each model coordinate's data partitions together."""
+    d_n, m_n = MESH_SHAPE
+    if not hierarchical:
+        return list(range(d_n * m_n))
+    return [d * m_n + m for m in range(m_n) for d in range(d_n)]
+
+
+def mesh_search(state, cfg, tids, qtf, mesh, kern, ref, torch, route, launches):
+    """One shape's checks on the stacked mesh: both accumulators and both
+    gathers, the launch counters around each; pruned == dense bitwise;
+    fused == hierarchical but for ties; the survivors of sampled partitions
+    run one at a time == the stacked body's, bitwise; the merge == K2 and
+    its twin over the gathered survivors, bitwise. Returns the answers and
+    the survivors' gathered rows."""
+    import functools
+
+    from repro_torch.parallel import compat
+    from repro_torch.parallel.compat import P, StackedMesh
+    from repro_torch.search import distributed as dist
+    from repro_torch.search.distributed import make_dist_search_fn, partitions_per_call
+    Q, k, n = tids.shape[0], cfg.k, cfg.n_docs_local
+    chunks = -(-cfg.n_parts // partitions_per_call(cfg, Q, tids.shape[1]))
+    per_call = chunks * topk_launches(n, k) + topk_launches(cfg.n_parts * k, k)
+    out = {}
+    for acc in ("dense", "pruned"):
+        for fused in (False, True):
+            c = dataclasses.replace(cfg, accumulator=acc, fused_gather=fused)
+            fn = make_dist_search_fn(c, MESH_AXES, mesh=mesh)
+            reset(kern)
+            s, i = fn(state, tids, qtf)
+            torch.cuda.synchronize()
+            name = f"{route} {acc}{' fused' if fused else ''}"
+            launches[name] = counted(kern, name, {"K2": per_call})
+            require(s.shape == (Q, k) and bool(torch.isfinite(s).all())
+                    and bool((s[:, :-1] >= s[:, 1:]).all()), f"{name}: not (Q, k) descending")
+            out[acc, fused] = (s, i)
+    for fused in (False, True):
+        (sd, id_), (sp, ip) = out["dense", fused], out["pruned", fused]
+        require(bits_equal(sd, sp) and bits_equal(id_, ip), f"{route}: pruned != dense")
+    (sh, ih), (sf, i_f) = out["dense", False], out["dense", True]
+    require(bits_equal(sh, sf), f"{route}: fused != hierarchical scores")
+    for q, r in zip(*torch.nonzero(ih != i_f, as_tuple=True)):
+        require(int((sh[q] == sh[q, r]).sum()) > 1, f"{route}: ids differ without a tie")
+    ties = int((ih != i_f).sum())
+    surv = compat.shard_map(
+        functools.partial(dist._local_search, cfg=cfg, axes=MESH_AXES), mesh,
+        in_specs=(dist.dist_state_specs(MESH_AXES), P(None, None), P(None, None)),
+        out_specs=(P(MESH_AXES), P(MESH_AXES)))
+    lv, li = surv(state, tids, qtf)
+    lv, li = lv.view(cfg.n_parts, Q, k), li.view(cfg.n_parts, Q, k)
+    one = StackedMesh((1, 1), MESH_AXES, device=mesh.device)
+    specs = dist.dist_state_specs(MESH_AXES)
+    for p in MESH_SAMPLE:
+        sub = {key: v[p:p + 1] if specs[key][0] else v for key, v in state.items()}
+        c1 = dataclasses.replace(cfg, n_parts=1)
+        v1, i1 = compat.shard_map(
+            functools.partial(dist._local_search, cfg=c1, axes=MESH_AXES), one,
+            in_specs=(specs, P(None, None), P(None, None)),
+            out_specs=(P(None, None), P(None, None)))(sub, tids, qtf)
+        require(bits_equal(v1, lv[p]) and bits_equal(i1 + p * n, li[p]),
+                f"{route}: partition {p} alone != the stacked body")
+    rows = {}
+    for fused in (False, True):
+        order = torch.tensor(gathered_order(not fused), device=lv.device)
+        gv = lv[order].permute(1, 0, 2).reshape(Q, -1).contiguous()
+        gi = li[order].permute(1, 0, 2).reshape(Q, -1)
+        (kv, kp), (tv, tp) = kern["K2"](gv, k), ref.topk_ref(gv, k)
+        require(bits_equal(kv, tv) and bits_equal(kp, tp), f"{route}: K2 != twin on the merge")
+        s, i = out["dense", fused]
+        require(bits_equal(kv, s) and bits_equal(torch.gather(gi, 1, kp.long()), i),
+                f"{route}: the merge of the gathered survivors != the mesh's answer")
+        rows[fused] = gv
+    print(f"[10] {route}: K2 {per_call} launches a call ({chunks} scoring calls of "
+          f"{cfg.n_parts // chunks} partitions) and no other kernel; pruned == dense "
+          f"bitwise (both gathers); fused == hierarchical but for {ties} tied ids; partitions "
+          f"{list(MESH_SAMPLE)} one at a time == the stacked body; the merge == K2 == twin over "
+          f"the gathered survivors", flush=True)
+    return out, rows
+
+
+def mesh_phase(kern, ref, torch, device="cuda"):
+    """Phase 10: the paper's §3 mesh search path at the anlessini geometry,
+    stacked on the card, then bert4rec's sharded vocabulary top-k and fm's
+    row-sharded lookup. Returns (launches by route, K2's cases at the
+    mesh's shapes, wall p50/p99 ms by accumulator and shape)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import init_params
+    from repro_torch.models.embedding import sharded_lookup_shardmap
+    from repro_torch.models.recsys import bert4rec_serve_topk, recsys_param_defs
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    from repro_torch.search import bm25
+    from repro_torch.search import distributed as dist
+    from repro_torch.search.distributed import make_dist_search_fn
+    t_phase = time.perf_counter()
+    an = get_arch("anlessini")
+    cfg = an.full_config(MESH_PARTS)
+    mesh = StackedMesh(MESH_SHAPE, MESH_AXES, device=device)
+    t0 = time.perf_counter()
+    state, terms = anlessini_state(cfg, torch, device)
+    torch.cuda.synchronize()
+    print(f"[10] anlessini full_config({MESH_PARTS}) on a stacked {MESH_SHAPE} mesh: "
+          f"{cfg.n_docs_local} docs and {cfg.n_blocks_local} blocks of {cfg.block} a "
+          f"partition, vocab {cfg.vocab}, {terms['n_terms']} live terms "
+          f"({terms['n_post']} postings a partition: "
+          f"{100 * terms['n_post'] * cfg.n_parts / MESH_GEOMETRY_POSTINGS:.1f} % of the "
+          f"geometry's {MESH_GEOMETRY_POSTINGS // cfg.n_parts}, "
+          f"{100 * terms['n_post'] / (cfg.n_blocks_local * cfg.block):.1f} % of the lanes), "
+          f"{terms['multi']} of more than one block "
+          f"holding {terms['multi_blocks']} blocks, the largest {terms['largest']}; made on the "
+          f"card in {time.perf_counter() - t0:.1f} s: "
+          f"{ {key: v.nbytes for key, v in state.items()} } B", flush=True)
+    launches, cases, walls_ms = {}, {}, {}
+    for sname, shape in an.SHAPES.items():
+        Q = shape["Q"]
+        tids, qtf = anlessini_queries(terms, Q, cfg.max_terms, seed=Q)
+        t = np.maximum(tids, 0)
+        nb = np.minimum(cfg.max_blocks, np.diff(terms["offsets"])[t]) * (tids >= 0)
+        real = int(nb.sum())
+        real_post = int(np.minimum(terms["df"][t], nb * cfg.block).sum())
+        lanes = Q * cfg.max_terms * cfg.max_blocks * cfg.block
+        print(f"[10] {sname}: {float((tids >= 0).sum(1).mean()):.2f} distinct terms a query, "
+              f"{real / Q:.1f} of the {cfg.max_terms * cfg.max_blocks} gathered blocks a query "
+              f"real, holding {real_post / Q:.1f} postings: "
+              f"{100 * real_post / (real * cfg.block):.1f} % of the real blocks' lanes, "
+              f"{100 * real_post / lanes:.1f} % of all gathered lanes", flush=True)
+        route = f"mesh:anlessini {sname}"
+        out, rows = mesh_search(state, cfg, tids, qtf, mesh, kern, ref, torch, route, launches)
+        for acc in ("dense", "pruned"):
+            fn = make_dist_search_fn(dataclasses.replace(cfg, accumulator=acc),
+                                     MESH_AXES, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for _ in range(MESH_REPS + 1):
+                t0 = time.perf_counter()
+                fn(state, tids, qtf)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            walls = np.asarray(walls[1:]) * 1e3
+            print(f"[10] {acc} {sname} (Q {Q}, hierarchical gather): wall p50 "
+                  f"{np.percentile(walls, 50):.3f} ms p99 {np.percentile(walls, 99):.3f} ms over "
+                  f"{MESH_REPS} warm batches; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} B", flush=True)
+            walls_ms[f"{acc} {sname}"] = [float(np.percentile(walls, 50)),
+                                          float(np.percentile(walls, 99))]
+            if acc == "dense":
+                profile_window("10", f"dense {sname}", lambda b: fn(state, *b),
+                               [(tids, qtf)] * 4, kern)
+        # K2's local rows as the path launches them: one scoring call's partitions
+        per = min(cfg.n_parts, dist.partitions_per_call(cfg, Q, cfg.max_terms))
+        local = dist.stacked_search_state(
+            {key: state[key][:per] for key in ("term_offsets", "block_docs", "block_tf",
+                                               "block_max", "doc_len")},
+            state["idf"], state["params"], cfg)
+        rep = lambda x: torch.as_tensor(x, device=device).repeat(per, 1)
+        scores = bm25.score_dense(local, rep(tids), rep(qtf), max_blocks=cfg.max_blocks)
+        scores = scores.contiguous()
+        cases[f"local top-k {sname}"] = k2_case(kern["K2"], ref, torch, scores, cfg.k,
+                                                f"{route} local top-k")
+        print_case("10", f"K2 on the mesh's local rows ({sname})", cases[f"local top-k {sname}"])
+        del scores
+        cases[f"merge {sname}"] = k2_case(kern["K2"], ref, torch, rows[False], cfg.k,
+                                          f"{route} merge")
+        print_case("10", f"K2 on the mesh's gathered survivors ({sname})",
+                   cases[f"merge {sname}"])
+    del state
+    torch.cuda.empty_cache()
+    print(f"[10] the search mesh took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # bert4rec's vocabulary top-k over a stacked (1, 4) mesh, 512 rows
+    t0 = time.perf_counter()
+    b4r = get_arch("bert4rec").full_config()
+    params = init_params(recsys_param_defs(b4r), torch.Generator().manual_seed(0), device)
+    seq = recsys_batch(b4r, RECSYS_SHAPES["serve_p99"])["seq"]
+    V, k = b4r.n_items + 2, RECSYS_SHAPES["k"]
+    reset(kern)
+    want_v, want_i = bert4rec_serve_topk(params, seq, b4r, k=k, device=device)
+    torch.cuda.synchronize()
+    launches["mesh:bert4rec unsharded serve_p99"] = counted(
+        kern, "bert4rec unsharded", {"K5": b4r.n_blocks, "K2": topk_launches(V, k)})
+    sharded = dataclasses.replace(b4r, sharded_topk=True)
+    with use_mesh(StackedMesh((1, 4), MESH_AXES, device=device)):
+        reset(kern)
+        got_v, got_i = bert4rec_serve_topk(params, seq, sharded, k=k, device=device)
+        torch.cuda.synchronize()
+        launches["mesh:bert4rec sharded_topk serve_p99"] = counted(
+            kern, "bert4rec sharded_topk", {"K5": b4r.n_blocks,
+                                            "K2": topk_launches(V // 4, k) + topk_launches(4 * k, k)})
+    require(bits_equal(got_i, want_i) and bits_equal(got_v, want_v),
+            "bert4rec sharded_topk != unsharded")
+    print(f"[10] bert4rec sharded_topk over a stacked (1, 4) mesh, {seq.shape[0]} rows, k {k}: "
+          f"ids and value bits == sharded_topk=False; launches "
+          f"{launches['mesh:bert4rec sharded_topk serve_p99']} (unsharded "
+          f"{launches['mesh:bert4rec unsharded serve_p99']}), in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+
+    # fm's row-sharded lookup over a stacked (2, 4) mesh
+    fm = get_arch("fm").full_config()
+    gen = torch.Generator(device=device).manual_seed(1)
+    table = torch.randn(fm.rows_per_field, fm.embed_dim, generator=gen, device=device)
+    ids = torch.as_tensor(recsys_batch(fm, RECSYS_SHAPES["serve_p99"])["sparse"],
+                          device=device).reshape(-1)
+    reset(kern)
+    rows_ = sharded_lookup_shardmap(StackedMesh((2, 4), MESH_AXES, device=device), table, ids)
+    torch.cuda.synchronize()
+    launches["mesh:fm sharded lookup"] = counted(kern, "fm sharded lookup", {})
+    require(bits_equal(rows_, torch.index_select(table, 0, ids.long())),
+            "sharded_lookup_shardmap != index_select")
+    print(f"[10] fm sharded_lookup_shardmap over a stacked (2, 4) mesh: {ids.numel()} ids into "
+          f"{tuple(table.shape)} == index_select bitwise, no kernel", flush=True)
+    print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, cases, walls_ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
@@ -2216,6 +2576,9 @@ def main() -> int:
     ap.add_argument("--structured-only", action="store_true",
                     help="phases 1, 2 and 9 only (a shake-out of the structured tier and the "
                          "write path; prints no ok line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1, 2 and 10 only (a shake-out of the mesh path; prints no ok "
+                         "line)")
     args = ap.parse_args()
 
     import torch
@@ -2309,6 +2672,15 @@ def main() -> int:
         print(smi, flush=True)
         print("chip_smoke: --structured-only, a partial run", flush=True)
         return 0
+    if args.mesh_only:
+        mesh_launches, mesh_cases, walls = mesh_phase(kern, ref, torch)
+        print(json.dumps({"mesh_only": {"launches_by_route": mesh_launches, "walls_ms": walls,
+                                        "k2": {name: case_entry(r)
+                                               for name, r in mesh_cases.items()}}}),
+              flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --mesh-only, a partial run", flush=True)
+        return 0
 
     # 3. data at real scale
     t0 = time.perf_counter()
@@ -2375,6 +2747,13 @@ def main() -> int:
     launches.update({f"phase 9 {route}": c for route, c in st_launches.items()})
     print(f"[9] phases 1-9 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 10. the paper's §3 mesh path at the anlessini geometry, stacked on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_cases, mesh_walls = mesh_phase(kern, ref, torch)
+    launches.update(mesh_launches)
+    print(f"[10] phases 1-10 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
     Q = len(queries)
     meta = {
         "K3": ("bm25_block_impacts", "src/repro_torch/kernels/csrc/bm25_block.cu",
@@ -2405,6 +2784,11 @@ def main() -> int:
     line["kernels"][2]["shapes"]["past the old range limit"] = case_entry(k1_wide)
     line["kernels"][1]["shapes"] = {"search": case_entry(rows["K2"][Q]),
                                     "bert4rec vocabulary": case_entry(results["bert4rec"]["k2_vocab"])}
+    line["kernels"][1]["shapes"].update(
+        {f"mesh {name}": case_entry(r) for name, r in mesh_cases.items()})
+    line["kernels"][1]["mesh_walls_ms"] = mesh_walls
+    line["kernels"][1]["launches_on"] = [COUNTED_ON["K2"]] + [
+        route for route, c in mesh_launches.items() if c["K2"]]
     line["kernels"][1]["structured_device_us"] = {
         key: v for key, (v, _) in split.items()}
     line["kernels"].append({

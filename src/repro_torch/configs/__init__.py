@@ -1,7 +1,7 @@
 """Architecture registry of the port: the dense LMs and the recsys models
-whose serving paths are ported, under the reference's ids. Each module
-exposes ``FAMILY``, ``full_config()`` and ``reduced_config()``;
-``rules``/``cells`` wait for ROADMAP Queue 1 item 10."""
+whose serving paths are ported, and the paper's own search geometry, under
+the reference's ids. Each module exposes ``FAMILY``, ``full_config()`` and
+``reduced_config()``; ``rules``/``cells`` wait for ROADMAP Queue 1 item 10."""
 
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ ARCH_MODULES = {
     "bst": "repro_torch.configs.bst",
     "dcn-v2": "repro_torch.configs.dcn_v2",
     "bert4rec": "repro_torch.configs.bert4rec",
+    # the paper's own
+    "anlessini": "repro_torch.configs.anlessini",
 }
 
 

@@ -1,22 +1,29 @@
-"""Fleet-level document partitioning: scatter-gather over one FaaS function
-per partition, the hit merge, RRF fusion and the fleet's typed spec — the
-fleet half of ``repro/core/partition.py`` (paper §3's scaling path).
+"""Document partitioning + global top-k merge (paper §3's scaling path) —
+the port of ``repro/core/partition.py``.
 
 "This barrier to scalability ... can be straightforwardly solved by standard
 document partitioning practices, where separate Lambda instances are assigned
 to different partitions of the document collection."
 
-``ScatterGather`` fans a query out to every partition's function and merges
-the per-partition hits. Latency = max over partitions (+merge), i.e. the
-straggler profile the runtime's hedging targets. Partitions may be
-REPLICATED: a replica group serves one segment from R independent instance
-pools, and a ``HedgePolicy`` fires a backup leg on a replica whenever the
-primary's projected completion (queue + cold boot) exceeds a quantile of
-recent warm latencies.
+Two realizations, same math:
 
-The mesh half of the reference module (``local_topk``, ``merge_topk``,
-``shard_topk_merge``, ``partitioned_topk``) waits for the mesh path (ROADMAP
-Queue 1 item 6).
+* **Mesh-level** (``partitioned_topk``, ``shard_topk_merge``): shards of the
+  candidate/document axis live on the partitions of a mesh
+  (:mod:`repro_torch.parallel.compat`: one per rank, or all stacked on one
+  card); each computes its local top-k; the k·P survivors are all-gathered
+  and reduced to the global top-k. k ≪ N/P makes the collective tiny. Every
+  top-k is K2's (:func:`repro_torch.kernels.topk.topk`: the kernel on the
+  card, its twin on the CPU), ties to the lower position in the row, as
+  ``lax.top_k``.
+
+* **Fleet-level** (``ScatterGather``): one FaaS function per partition; the
+  coordinator fans out a query to every partition's function and merges the
+  per-partition hits. Latency = max over partitions (+merge), i.e. the
+  straggler profile the runtime's hedging targets. Partitions may be
+  REPLICATED: a replica group serves one segment from R independent instance
+  pools, and a ``HedgePolicy`` fires a backup leg on a replica whenever the
+  primary's projected completion (queue + cold boot) exceeds a quantile of
+  recent warm latencies.
 """
 
 from __future__ import annotations
@@ -25,7 +32,12 @@ import dataclasses
 import math
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
+import torch
+
 from repro_torch.core.runtime import RetriesExhausted, nearest_rank_percentiles
+from repro_torch.kernels.topk import topk
+from repro_torch.parallel import compat
+from repro_torch.parallel.compat import P
 
 if TYPE_CHECKING:   # type-only: autoscale/gateway/index/search import upward
     from repro_torch.core.autoscale import AutoscalePolicy
@@ -34,6 +46,58 @@ if TYPE_CHECKING:   # type-only: autoscale/gateway/index/search import upward
     from repro_torch.core.runtime import RuntimeConfig
     from repro_torch.index.builder import MergePolicy
     from repro_torch.search.searcher import SearchConfig
+
+
+def local_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Top-k of (scores, ids) along the last axis: K2 over the rows, ties to
+    the lower position in the row, then each winner's id. ``ids`` broadcasts
+    against ``scores``."""
+    n = scores.shape[-1]
+    vals, pos = topk(scores.reshape(-1, n), k)
+    lead = scores.shape[:-1]
+    pos = pos.long().clamp(max=n - 1).view(*lead, -1)   # K2 marks a -inf slot n
+    ids = torch.gather(torch.broadcast_to(ids, scores.shape), -1, pos)
+    return vals.view(*lead, -1), ids
+
+
+def merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Merge candidate sets along the last axis into top-k (ties → the lower
+    position in the gathered row, which is not the lower id; scores ordering
+    only, like Lucene's by-score)."""
+    return local_topk(scores, ids, k)
+
+
+def shard_topk_merge(scores: torch.Tensor, ids: torch.Tensor, k: int, axis_name: str):
+    """Inside shard_map: local top-k, all-gather survivors, global top-k.
+
+    scores/ids: (L, ..., n_local). Returns (L, ..., k) replicated across
+    axis_name."""
+    lv, li = local_topk(scores, ids, k)
+    gv = compat.all_gather(lv, axis_name)          # (L, ..., k·P)
+    gi = compat.all_gather(li, axis_name)
+    return merge_topk(gv, gi, k)
+
+
+def partitioned_topk(score_fn: Callable[..., torch.Tensor], mesh: "compat.Mesh | None",
+                     axis_name: str, k: int, *, in_specs: Any, query_spec: Any = None):
+    """Build a shard_map'd global-top-k scorer.
+
+    ``score_fn(query, *state_shards) -> (L, ..., n_local) scores`` runs per
+    partition (the leading L of :mod:`repro_torch.parallel.compat`); doc ids
+    are reconstructed as partition-local offsets shifted by the partition
+    index so returned ids are global."""
+
+    def per_shard(query, *state):
+        scores = score_fn(query, *state)
+        n_local = scores.shape[-1]
+        p = compat.axis_index(axis_name)
+        base = (p * n_local).to(torch.int32).view(-1, *[1] * (scores.dim() - 1))
+        ids = base + torch.arange(n_local, dtype=torch.int32, device=scores.device)
+        return shard_topk_merge(scores, ids, k, axis_name)
+
+    qspec = query_spec if query_spec is not None else P()
+    return compat.shard_map(per_shard, mesh, in_specs=(qspec,) + tuple(in_specs),
+                            out_specs=(P(), P()))
 
 
 # -- fleet-level scatter/gather ------------------------------------------------

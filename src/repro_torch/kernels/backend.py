@@ -87,6 +87,18 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no twin for device {device}")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A hand kernel writes into ``torch.empty`` outputs and has no backward:
+    its result carries no ``grad_fn``. So a launch on inputs that require
+    grad while grad is enabled raises, instead of cutting the graph
+    silently (the CPU twins, plain PyTorch, differentiate)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            "torch.inference_mode() or torch.no_grad(), or on tensors that do not "
+            "require grad")
+
+
 def resolve_device(device: "str | torch.device | None") -> torch.device:
     """An entry point's ``device=``: ``None`` means the card. Without a card
     that raises — only an explicit ``device="cpu"`` runs the twins."""

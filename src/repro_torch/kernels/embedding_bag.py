@@ -34,6 +34,7 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
                          f"weights, got {table.dtype}/{idx.dtype}/{weights.dtype}")
     if not backend.use_kernel(table, idx, weights):
         return ref.embedding_bag_ref(table, idx, weights)
+    backend.refuse_grad("embedding_bag", table, weights)
     B, L = idx.shape
     D = table.shape[1]
     if B >= 2 ** 31:

@@ -89,6 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not backend.use_kernel(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len,
                                        sm_scale=sm_scale)
+    backend.refuse_grad("flash_attention", q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes f32 or bf16 alike, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")

@@ -2,6 +2,11 @@
 
 * ``embedding_lookup`` — ``index_select`` of whole rows (the reference's
   ``jnp.take``).
+* ``sharded_lookup_shardmap`` — the mod-sharded lookup written explicitly
+  with shard_map + psum over a mesh (:mod:`repro_torch.parallel.compat`: one
+  table shard per rank, or all stacked on one card): each shard gathers the
+  rows it owns, zeros elsewhere, and the sum over the ``"model"`` axis
+  rebuilds the lookup exactly (one shard contributes each row).
 * ``embedding_bag`` — ``torch.nn.EmbeddingBag`` semantics in the offsets
   form: the ragged bags are laid out as padded ``(n_bags, L_max)`` ids and
   weights (pad id -1) and summed by K6
@@ -10,9 +15,9 @@
   and ``segment_sum``\\ s instead; its order on the CPU is the bag's, slot by
   slot, which is K6's.
 
-The row-sharded lookups (``sharded_lookup_local``,
-``sharded_lookup_shardmap``) belong to the mesh path, ROADMAP Queue 1 item 6,
-and raise ``NotImplementedError``.
+The tables are the "index in S3" of the paper's state/compute split for
+recsys: hydrated into device memory by the serving runtime, row-partitioned
+like the paper's §3 document partitions.
 """
 
 from __future__ import annotations
@@ -20,8 +25,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.embedding_bag import embedding_bag as _k6
-
-_MESH = "the row-sharded lookup runs on the mesh path, not ported yet (ROADMAP Queue 1 item 6)"
+from repro_torch.parallel import compat
+from repro_torch.parallel.compat import P
 
 
 def embedding_lookup(table: torch.Tensor, idx) -> torch.Tensor:
@@ -30,13 +35,36 @@ def embedding_lookup(table: torch.Tensor, idx) -> torch.Tensor:
     return torch.index_select(table, 0, idx.reshape(-1)).reshape(*idx.shape, table.shape[1])
 
 
-def sharded_lookup_local(table_shard, idx, axis_name: str = "model"):
-    raise NotImplementedError(_MESH)
+def sharded_lookup_local(table_shard: torch.Tensor, idx: torch.Tensor,
+                         axis_name: str = "model") -> torch.Tensor:
+    """Inside shard_map: each shard owns rows [lo, lo+R_local); masked local
+    gather + psum reconstructs the full lookup. ``table_shard`` (L, R_local,
+    D) and ``idx`` (L, ...) carry the mesh's leading partition dimension."""
+    L, R_local = table_shard.shape[:2]
+    shard = compat.axis_index(axis_name).view(L, *[1] * (idx.dim() - 1))
+    local = idx - shard * R_local
+    ok = (local >= 0) & (local < R_local)
+    safe = torch.clamp(local, 0, R_local - 1).reshape(L, -1)
+    rows = table_shard[torch.arange(L, device=idx.device)[:, None], safe]
+    rows = rows.view(*idx.shape, table_shard.shape[2])
+    vals = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+    return compat.psum(vals, axis_name)
 
 
 def sharded_lookup_shardmap(mesh, table, idx, *, axis_name: str = "model",
-                            batch_axis: "str | None" = "data"):
-    raise NotImplementedError(_MESH)
+                            batch_axis: "str | None" = "data") -> torch.Tensor:
+    """Explicit mod-sharded lookup: table rows on `axis_name`, batch on
+    `batch_axis`; output batch-sharded, feature-replicated (returned whole,
+    on the mesh's device)."""
+    bspec = P(batch_axis) if batch_axis else P()
+    fn = compat.shard_map(
+        lambda t, i: sharded_lookup_local(t, i, axis_name),
+        mesh,
+        in_specs=(P(axis_name, None), bspec),
+        out_specs=bspec,
+    )
+    return fn(table, idx)
 
 
 def embedding_bag(table: torch.Tensor, indices, offsets, n_bags: int, *,

@@ -28,12 +28,15 @@ Where the kernels sit:
   for both Σv and Σv², so no row is read twice.
 * K5 carries the BST and BERT4Rec encoders (:func:`attention`'s default).
 * K2 (:mod:`repro_torch.kernels.topk`) takes every top-k, ties to the lowest
-  id as ``lax.top_k``; ``torch.topk`` leaves tie order unspecified.
+  id as ``lax.top_k``; ``torch.topk`` leaves tie order unspecified. With
+  ``sharded_topk`` bert4rec ranks its vocabulary per shard of the ambient
+  mesh's ``"model"`` axis (:mod:`repro_torch.parallel.compat`) and merges
+  the k·M survivors, each step on K2.
 
 Every entry point takes ``device=None`` (the card; it raises without one)
 or ``device="cpu"``; the parameters must already live there. The losses
 (``ctr_loss``, ``masked_item_loss*``, ``recsys_loss``) wait for the training
-item, and ``sharded_topk`` for the mesh path (ROADMAP Queue 1 items 8 and 6).
+item (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.partition import merge_topk
 from repro_torch.kernels import topk as k2
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.dot_topk import dot_topk
@@ -52,6 +56,8 @@ from repro_torch.models.attention import attention
 from repro_torch.models.common import (ParamDef, count_params, dense, layer_norm, mlp_stack,
                                        mlp_stack_defs, tree_leaves)
 from repro_torch.models.embedding import embedding_lookup
+from repro_torch.parallel import compat
+from repro_torch.parallel.compat import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,12 +76,7 @@ class RecsysConfig:
     n_cross_layers: int = 3
     dtype: Any = torch.float32
     unroll: bool = False            # the reference's dry-run knob; no effect here
-    sharded_topk: bool = False      # the mesh path's vocab top-k (not ported)
-
-    def __post_init__(self):
-        if self.sharded_topk:
-            raise NotImplementedError(
-                "sharded_topk runs on the mesh path, not ported yet (ROADMAP Queue 1 item 6)")
+    sharded_topk: bool = False      # shard_map local-topk serve (perf)
 
     def param_count(self) -> int:
         return count_params(recsys_param_defs(self))
@@ -268,7 +269,8 @@ def bert4rec_serve_topk(params, seq, cfg: RecsysConfig, *, k: int = 100,
     """Next-item top-k over the full vocab, ``chunk`` sequences at a time so
     that the (chunk, V) score tile stays bounded; the batch is padded with
     [PAD] to a multiple of ``chunk``, as the reference's scan needs. Returns
-    (vals, ids int32), each (B, k); the top-k is K2's."""
+    (vals, ids int32), each (B, k); the top-k is K2's. ``cfg.sharded_topk``
+    ranks per vocabulary shard of the ambient mesh instead."""
     dev = _device(params, device)
     seq = _on(dev, seq)
     B = seq.shape[0]
@@ -279,11 +281,38 @@ def bert4rec_serve_topk(params, seq, cfg: RecsysConfig, *, k: int = 100,
     vals, ids = [], []
     for s in seq.split(chunk):
         x = _bert4rec_hidden(params, s, cfg)[:, -1]          # (chunk, D)
-        logits = x @ params["item_emb"].T + params["out_b"]
-        v, i = k2.topk(logits.float(), k)
+        if cfg.sharded_topk:
+            v, i = _sharded_vocab_topk(x, params["item_emb"], params["out_b"], k)
+        else:
+            logits = x @ params["item_emb"].T + params["out_b"]
+            v, i = k2.topk(logits.float(), k)
         vals.append(v)
         ids.append(i)
     return torch.cat(vals)[:B], torch.cat(ids)[:B]
+
+
+def _sharded_vocab_topk(x, emb, bias, k: int, *, axis: str = "model"):
+    """Per-vocab-shard scoring + local top-k + k·M merge — on a rank mesh the
+    full (chunk, V) logits never meet on one device. Requires an ambient
+    mesh with `axis`; emb rows sharded over `axis`. The shards' survivors
+    leave the shard_map all-gathered over `axis` (its out-spec), and one K2
+    merge of the (chunk, k·M) row follows."""
+
+    def local(xl, el, bl):
+        j = compat.axis_index(axis)                        # (L,)
+        L, v_loc, d = el.shape
+        # x is replicated: its one copy meets every shard held here in one
+        # GEMM, (chunk, L·V_loc), whose row b holds the L shards' logits in turn
+        logits = xl[0] @ el.reshape(L * v_loc, d).T + bl.reshape(-1)
+        lv, li = k2.topk(logits.float().reshape(-1, v_loc), k)       # rows (b, shard)
+        lv = lv.view(-1, L, k).transpose(0, 1)                       # (L, chunk, k)
+        li = li.view(-1, L, k).transpose(0, 1) + (j * v_loc).to(torch.int32).view(L, 1, 1)
+        return lv, li
+
+    gv, gi = compat.shard_map(local, None,
+                              in_specs=(P(), P(axis, None), P(axis)),
+                              out_specs=(P(None, axis), P(None, axis)))(x, emb, bias)
+    return merge_topk(gv, gi, k)
 
 
 # -- retrieval tower ----------------------------------------------------------------

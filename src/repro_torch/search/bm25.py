@@ -22,6 +22,10 @@ Python loop over queries on the card):
 ``pruned`` is BIT-identical to ``dense``: it only skips blocks that provably
 cannot enter the top-k, and ties go to the lowest doc id as in
 ``lax.top_k``. ``torch.topk`` is never used: its tie order is unspecified.
+
+A state may stack L partitions (the mesh path's, on one device): its query
+rows then come partition-major, row r reading partition r // (R / L), each
+row through the same operations as on that partition's own state.
 """
 
 from __future__ import annotations
@@ -49,7 +53,10 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 @dataclasses.dataclass
 class SearchState:
     """Device-resident index tensors (the hydrated 'warm' state), the
-    reference's dtypes and shapes on one device."""
+    reference's dtypes and shapes on one device. A stacked state holds L
+    partitions' ``term_offsets`` (L, V+1), ``block_docs``/``block_tf`` (L,
+    NB, B), ``block_max`` (L, NB) and ``doc_len`` (L, n_docs+1) under one
+    ``idf`` and one set of scalars."""
 
     term_offsets: torch.Tensor   # (V+1,) int32
     block_docs: torch.Tensor     # (NB, B) int32 (uint16 when compact)
@@ -89,6 +96,10 @@ class SearchState:
         return self.term_offsets.device
 
     @property
+    def stacked(self) -> bool:
+        return self.term_offsets.dim() == 2
+
+    @property
     def nbytes(self) -> int:
         return sum(t.nbytes for t in (
             self.term_offsets, self.block_docs, self.block_tf, self.block_max,
@@ -100,21 +111,49 @@ def gather_query_blocks(state: SearchState, term_ids: torch.Tensor, max_blocks: 
 
     term_ids: (Q, T) int32, -1 = pad. Returns docs (Q,T,M,B) int32, tf
     (Q,T,M,B) u8, bmax (Q,T,M) f32 (0 where invalid), valid (Q,T,M,1) bool.
-    Invalid rows alias block 0 (with validity false), as in the reference.
+    Invalid rows alias block 0 (with validity false), as in the reference;
+    on a stacked state, block 0 of the row's own partition.
     """
     tid = torch.clamp(term_ids, min=0).long()
-    off = state.term_offsets[tid]                               # (Q, T)
-    n_blk = state.term_offsets[tid + 1] - off                   # (Q, T)
+    offsets, docs_t, tf_t, bmax_t = (state.term_offsets, state.block_docs, state.block_tf,
+                                     state.block_max)
+    first = None
+    if state.stacked:
+        part = _row_parts(state, term_ids.shape[0])[:, None]    # (Q, 1)
+        tid = (part * offsets.shape[1] + tid).view(-1)
+        first = (part * docs_t.shape[1])[..., None]             # (Q, 1, 1)
+        offsets, docs_t, tf_t, bmax_t = (offsets.flatten(), docs_t.flatten(0, 1),
+                                         tf_t.flatten(0, 1), bmax_t.flatten())
+    off = offsets[tid].view(term_ids.shape)                     # (Q, T)
+    n_blk = offsets[tid + 1].view(term_ids.shape) - off         # (Q, T)
     m = torch.arange(max_blocks, dtype=torch.int32, device=term_ids.device)
     blk = off[..., None] + m                                    # (Q, T, M)
     valid = (m < n_blk[..., None]) & (term_ids[..., None] >= 0)
     blk = torch.where(valid, blk, 0).long()
-    docs = state.block_docs[blk]                                # (Q, T, M, B)
+    if first is not None:
+        blk = blk + first
+    docs = docs_t[blk]                                          # (Q, T, M, B)
     if docs.dtype != torch.int32:      # compact uint16 ids widen here
         docs = docs.to(torch.int32)
-    tf = state.block_tf[blk]
-    bmax = torch.where(valid, state.block_max[blk], 0.0)
+    tf = tf_t[blk]
+    bmax = torch.where(valid, bmax_t[blk], 0.0)
     return docs, tf, bmax, valid[..., None]
+
+
+def _row_parts(state: SearchState, rows: int) -> torch.Tensor:
+    """(rows,) int64: the partition each query row of a stacked state reads."""
+    L = state.term_offsets.shape[0]
+    if rows % L:
+        raise ValueError(f"{rows} query rows do not split over {L} stacked partitions")
+    return torch.arange(rows, device=state.device) // (rows // L)
+
+
+def _doc_len(state: SearchState, docs: torch.Tensor) -> torch.Tensor:
+    """Each gathered posting's doc length (pads read the dump slot)."""
+    d = torch.clamp(docs, max=state.n_docs).long()
+    if not state.stacked:
+        return state.doc_len[d]
+    return torch.gather(state.doc_len, 1, d.reshape(state.doc_len.shape[0], -1)).view(d.shape)
 
 
 def bm25_impacts(state: SearchState, term_ids: torch.Tensor, qtf: torch.Tensor,
@@ -126,9 +165,12 @@ def bm25_impacts(state: SearchState, term_ids: torch.Tensor, qtf: torch.Tensor,
     tid = torch.clamp(term_ids, min=0).long()
     idf = state.idf[tid] * qtf                                  # (Q, T)
     if use_kernel:
+        if state.stacked:
+            raise ValueError("K3's fused call reads one partition's doc_len: a stacked "
+                             "state takes use_kernel=False")
         return bm25_block_impacts(tf, docs, valid, state.doc_len, idf, *state.params,
                                   state.n_docs)
-    dl = state.doc_len[torch.clamp(docs, max=state.n_docs).long()]
+    dl = _doc_len(state, docs)
     imp = ref.bm25_block_scores_ref(tf, dl, idf, state.k1, state.b, state.avgdl)
     pad = docs >= state.n_docs
     return torch.where(valid & ~pad & (tf > 0), imp, 0.0)
@@ -169,7 +211,7 @@ def score_pruned(state: SearchState, term_ids: torch.Tensor, qtf: torch.Tensor,
     if use_kernel:
         tid = torch.clamp(term_ids, min=0).long()
         idf_q = state.idf[tid] * qtf                                 # (Q, T)
-        dl = state.doc_len[torch.clamp(docs, max=state.n_docs).long()]
+        dl = _doc_len(state, docs)
         return bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid[..., 0],
                                 *state.params, k=k, n_docs=state.n_docs)
     imp = bm25_impacts(state, term_ids, qtf, docs, tf, valid)

@@ -692,3 +692,67 @@ def test_commit_on_the_card_matches_the_cpu(cuda):
     after = [r for r in on_card if r.body.get("generation") == 2]
     assert len(after) == 6 + 4 * len(sqs)
     assert not deleted & {e for r in after for e in r.body["ext_ids"]}
+
+
+# -- hand kernels have no backward: K5 and K6 refuse to cut autograd -----------------
+
+
+def test_k5_and_k6_refuse_inputs_that_require_grad(cuda):
+    """On the card K5 and K6 write into fresh outputs with no ``grad_fn``:
+    with grad enabled, an input that requires grad is refused (through
+    ``attention``'s default route too); under ``inference_mode``, ``no_grad``
+    or on inputs that need no grad the same calls run."""
+    from repro_torch.models.attention import attention
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 8, 16, device=cuda, generator=g) for _ in range(3))
+    table = torch.randn(40, 8, device=cuda, generator=g)
+    idx = torch.randint(0, 40, (5, 3), device=cuda, generator=g, dtype=torch.int32)
+    w = torch.ones(5, 3, device=cuda)
+    qg, tg = q.clone().requires_grad_(), table.clone().requires_grad_()
+    for call in (lambda: flash_attention(qg, k, v), lambda: attention(qg, k, v),
+                 lambda: embedding_bag(tg, idx, w)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    for ctx in (torch.inference_mode, torch.no_grad):
+        with ctx():
+            assert _bits(flash_attention(qg, k, v), flash_attention(q, k, v))
+            assert _bits(embedding_bag(tg, idx, w), embedding_bag(table, idx, w))
+    assert flash_attention(q, k, v).grad_fn is None
+    assert embedding_bag(table, idx, w).shape == (5, 8)
+
+
+# -- the mesh path stacked on the card ------------------------------------------------
+
+
+def test_stacked_mesh_search_on_the_card_equals_the_cpu(cuda):
+    """Eight partitions stacked on the card as a (4, 2) mesh: every
+    (accumulator, gather) answers with the CPU's ids and score bits, and K2
+    carries the top-k."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.parallel.compat import StackedMesh
+    before = topk.launches
+    card = ranks.search_outputs(StackedMesh((4, 2), device=cuda))
+    assert topk.launches > before
+    cpu = ranks.search_outputs(StackedMesh((4, 2), device="cpu"))
+    assert sorted(card) == sorted(cpu)
+    for key in cpu:
+        assert np.array_equal(card[key].view(np.uint8), cpu[key].view(np.uint8)), key
+    lookup = ranks.lookup_outputs(StackedMesh((2, 4), device=cuda))["rows"]
+    table, ids = ranks.lookup_inputs()
+    assert np.array_equal(lookup.view(np.uint32), table[ids].view(np.uint32))
+
+
+def test_bert4rec_sharded_topk_on_the_card_equals_unsharded(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import init_params
+    from repro_torch.models.recsys import bert4rec_serve_topk, recsys_param_defs
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    cfg = get_arch("bert4rec").reduced_config()
+    params = init_params(recsys_param_defs(cfg), torch.Generator().manual_seed(4), "cuda")
+    seq = np.random.default_rng(5).integers(0, cfg.n_items, (6, cfg.seq_len)).astype(np.int32)
+    want = bert4rec_serve_topk(params, seq, cfg, k=10)
+    with use_mesh(StackedMesh((1, 4), device=cuda)):
+        got = bert4rec_serve_topk(params, seq, dataclasses.replace(cfg, sharded_topk=True), k=10)
+    assert _bits(got[0], want[0]) and _bits(got[1], want[1])

@@ -162,11 +162,41 @@ def test_embedding_lookup_matches_take():
                                                                    axis=0)))
 
 
-def test_sharded_lookups_raise_not_implemented():
-    for call in (lambda: temb.sharded_lookup_local(torch.zeros(4, 2), torch.zeros(3)),
-                 lambda: temb.sharded_lookup_shardmap(None, torch.zeros(4, 2), torch.zeros(3))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            call()
+def test_sharded_lookup_matches_reference():
+    """(1, 1), as ``tests/test_models.py::test_sharded_lookup_matches_take``:
+    the port's shard_map'd lookup against the reference's, bit for bit."""
+    from repro.parallel import compat as jcompat
+    from repro_torch.parallel.compat import StackedMesh
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((64, 8)).astype(np.float32)
+    idx = rng.integers(0, 64, 16).astype(np.int32)
+    jmesh = jcompat.make_mesh((1, 1), ("data", "model"))
+    with jcompat.use_mesh(jmesh):
+        want = np.asarray(jemb.sharded_lookup_shardmap(jmesh, jnp.asarray(table),
+                                                       jnp.asarray(idx)))
+    got = temb.sharded_lookup_shardmap(StackedMesh((1, 1), device="cpu"), table, idx)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, table[idx])
+
+
+@pytest.mark.parametrize("shape,batch_axis,dtype", [
+    ((2, 4), "data", torch.float32), ((4, 2), "data", torch.float32),
+    ((1, 8), None, torch.float32), ((2, 4), "data", torch.bfloat16)])
+def test_stacked_sharded_lookup_equals_index_select(shape, batch_axis, dtype):
+    """Rows sharded over "model", the batch over ``batch_axis``, every
+    partition on the CPU: exactly ``index_select`` (one shard owns each
+    row, the others add zeros)."""
+    from repro_torch.parallel import compat
+    rng = np.random.default_rng(sum(shape))
+    table = torch.from_numpy(rng.standard_normal((96, 6)).astype(np.float32)).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, 96, (8, 3)).astype(np.int32))
+    mesh = compat.StackedMesh(shape, device="cpu")
+    with compat.use_mesh(mesh):
+        got = temb.sharded_lookup_shardmap(None, table, idx, batch_axis=batch_axis)
+    want = temb.embedding_lookup(table, idx)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.int16) if dtype == torch.bfloat16 else got.view(torch.int32),
+                       want.view(torch.int16) if dtype == torch.bfloat16 else want.view(torch.int32))
 
 
 def test_layer_norm_and_mlp_stack_match_reference():

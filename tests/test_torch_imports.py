@@ -45,6 +45,9 @@ def test_every_module_imports_without_jax_or_repro():
         structured = ["repro_torch.search.query", "repro_torch.search.structured",
                       "repro_torch.core.autoscale"]
         assert set(structured) <= set(names), sorted(set(structured) - set(names))
+        mesh = ["repro_torch.parallel", "repro_torch.parallel.compat",
+                "repro_torch.search.distributed", "repro_torch.configs.anlessini"]
+        assert set(mesh) <= set(names), sorted(set(mesh) - set(names))
         spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -82,6 +85,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     from repro_torch.search.searcher import DenseSearcher, Searcher, make_search_handler
     from repro_torch.search.service import build_partitioned_search_app, build_search_app
     from repro_torch.search.structured import StructuredState
+    from repro_torch.parallel.compat import RankMesh, StackedMesh, make_mesh
+    from repro_torch.search.distributed import build_partitioned_state, stack_partitions
     docs = synth_corpus(20, vocab=50, seed=1)
     w = IndexWriter()
     w.add_many(docs)
@@ -97,10 +102,17 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
                  lambda: build_search_app(docs),
                  lambda: build_partitioned_search_app(docs, 2),
                  lambda: StructuredState.from_packed(packed),
-                 lambda: StructuredOracleSearcher(fielded)):
+                 lambda: StructuredOracleSearcher(fielded),
+                 lambda: build_partitioned_state(docs, 2),
+                 lambda: stack_partitions([packed], 20),
+                 lambda: StackedMesh((1, 2)),
+                 lambda: RankMesh((1, 2)),
+                 lambda: make_mesh((1, 2))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert Searcher(packed, device="cpu").search_one(docs[0][1].split()[0])
+    state, cfg, _ = build_partitioned_state(docs, 2, device="cpu")
+    assert state["block_docs"].device.type == "cpu" and cfg.n_parts == 2
     oracle = StructuredOracleSearcher(fielded, device="cpu")
     assert oracle.state.device.type == "cpu" and oracle.search(docs[0][1].split()[0])
 

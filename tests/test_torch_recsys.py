@@ -140,6 +140,42 @@ def test_bert4rec_serve_topk_matches_reference(chunk):
         assert_topk_close(hidden[b], emb, gv[b], gi[b], np.asarray(wv)[b], np.asarray(wi)[b])
 
 
+def test_bert4rec_sharded_topk_matches_reference():
+    """``sharded_topk=True`` on a (1, 1) mesh against the reference's on
+    its (1, 1) mesh, to the retrieval standard."""
+    from repro.parallel import compat as jcompat
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    jcfg, tcfg, jparams, params = _models("bert4rec")
+    jcfg = dataclasses.replace(jcfg, sharded_topk=True)
+    tcfg = dataclasses.replace(tcfg, sharded_topk=True)
+    seq = _batch(tcfg, B, seed=4)["seq"]
+    jmesh = jcompat.make_mesh((1, 1), ("data", "model"))
+    with jcompat.use_mesh(jmesh):
+        wv, wi = jr.bert4rec_serve_topk(jparams, jnp.asarray(seq), jcfg, k=100)
+    with use_mesh(StackedMesh((1, 1), device="cpu")):
+        gv, gi = tr.bert4rec_serve_topk(params, seq, tcfg, k=100, device="cpu")
+    assert gv.shape == (B, 100) and gi.dtype == torch.int32
+    hidden = np.asarray(jr._bert4rec_hidden(jparams, jnp.asarray(seq), jcfg))[:, -1]
+    emb = np.asarray(jparams["item_emb"])
+    for b in range(B):
+        assert_topk_close(hidden[b], emb, gv[b], gi[b], np.asarray(wv)[b], np.asarray(wi)[b])
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2), (1, 8)])
+def test_bert4rec_sharded_topk_equals_unsharded(shape):
+    """Vocabulary shards stacked on the CPU: the k·M survivors merged by
+    position give the unsharded top-100's ids and value bits."""
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    _, tcfg, _, params = _models("bert4rec")
+    seq = _batch(tcfg, B, seed=6)["seq"]
+    want_v, want_i = tr.bert4rec_serve_topk(params, seq, tcfg, k=100, device="cpu")
+    with use_mesh(StackedMesh(shape, device="cpu")):
+        got_v, got_i = tr.bert4rec_serve_topk(params, seq, dataclasses.replace(
+            tcfg, sharded_topk=True), k=100, device="cpu")
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+
+
 def test_serving_launches_no_kernel_on_the_cpu():
     """On CPU tensors every wrapper takes its twin: no launch is counted."""
     kern = (embedding_bag, flash_attention, dot_topk_batch, topk)
@@ -195,10 +231,7 @@ def test_data_streams_match_reference_bitwise():
     assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
 
 
-def test_sharded_topk_and_mismatched_weights_are_refused():
-    cfg = get_arch("bert4rec").reduced_config()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        dataclasses.replace(cfg, sharded_topk=True)
+def test_mismatched_weights_are_refused():
     jcfg = j_get_arch("fm").reduced_config()
     tcfg = get_arch("fm").reduced_config()
     tree = jax.tree_util.tree_map(np.asarray, j_init_params(jr.recsys_param_defs(jcfg),
