@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: drive the single-node BM25 query
-path, the partitioned fleet, the LM serving path and recsys serving on one
+path, the partitioned fleet, the structured tier, the mesh path, the serve
+launcher, the LM serving paths (dense, MoE, MLA) and recsys serving on one
 NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
 
-    python3 chip_smoke.py                 # 1M-doc partition (the default)
-    python3 chip_smoke.py --docs 250000   # a smaller partition
+    python3 chip_smoke.py                 # 500,000-doc partition (the default)
+    python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
     python3 chip_smoke.py --topk-only     # phases 1, 2, then K2 and K4 alone (no ok line)
@@ -12,12 +13,15 @@ NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --k3-only       # phases 1, 2, then K3 alone (no ok line)
     python3 chip_smoke.py --structured-only  # phases 1, 2 and 9 (no ok line)
     python3 chip_smoke.py --mesh-only     # phases 1, 2 and 10 (no ok line)
+    python3 chip_smoke.py --serve-only    # phases 1, 2 and 11 (no ok line)
+    python3 chip_smoke.py --moe-only      # phases 1, 2, 12 and 13 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
   2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-  3. a synthetic 1M-passage partition (MS MARCO-like passage length, the
-     anlessini config's 2^19 vocab), published and served by
+  3. a synthetic 500,000-passage partition (``--docs``, cut from 1M to keep
+     the whole run well inside its time limit; MS MARCO-like passage length,
+     the anlessini config's 2^19 vocab), published and served by
      ``build_search_app`` with the pruned + kernels config on the card;
   4. K3, K2 and K1 against their twins on that index's real gathered
      blocks for Q=1 and Q=64, bitwise, and K1 against the dense plain path;
@@ -141,6 +145,33 @@ Phases (each raises on failure; the script then exits non-zero):
      ``sharded_topk`` on a stacked (1, 4) mesh, 512 rows: ids and value bits
      of ``sharded_topk=False``; fm's 2^20 × 10 table through
      ``sharded_lookup_shardmap`` on a stacked (2, 4) mesh == ``index_select``.
+ 11. the serve launcher, ``repro_torch.launch.serve``, at its defaults (20,000
+     docs, 500 queries, 20 QPS): ``run_single`` with ``--kernel`` (K3 alone,
+     one launch a query, every response ok; the first 20 answers' ids equal
+     the same launcher's on the CPU) and ``run_partitioned`` with
+     ``--partitions 4 --replicas 2``, both JSONs printed; then the
+     reference's B2: ``KVPostingsIndex`` (Crane & Lin '17, plain Python,
+     modeled DynamoDB time) over B2's 20,000 docs and 200 queries against
+     the card's warm p50 (``kvstore_baseline_p50_ms``,
+     ``anlessini_warm_p50_ms``, ``speedup_x``);
+ 12. olmoe-1b-7b at ``full_config()`` (16 layers, d 2048, 64 experts top-8,
+     ``moe_impl="ep"``, bf16, seeded random weights made on the card) under
+     a stacked (1, 1) mesh: ``lm_prefill`` of 4 prompts of 4,096 tokens, 32
+     greedy ``lm_decode`` steps, the counters checked (per prefill 16 K5
+     "tc" and 16 K2, per step 16 K5 "split" and 16 K2, nothing else);
+     profiler windows over decode steps and one prefill; K5 against its
+     twin on layer 0's q/k/v (prefill and decode) and timed beside SDPA and
+     the bound; K2 bitwise on layer 0's router probabilities (16,384 × 64,
+     k 8) and timed beside ``torch.topk``; layer 0's routed FFN by EP on a
+     stacked (1, 4) mesh against the global dispatch (kept assignments and
+     slot tables equal, outputs within ``EP_TOL``; the global combine run
+     twice, equal bit for bit);
+ 13. deepseek-v2-236b at full width on 4 of its 60 layers (memory): the
+     same on 2 prompts of 2,048 tokens and 16 decode steps against the
+     latent cache (per prefill 4 K5 "tc" and 4 K2, per step 4 K2 and no
+     K5: the absorbed decode is plain), K5 at qk 192 / v 128 / 128 heads,
+     K2 on (4,096 × 160, k 6), the latent cache's bytes beside a k/v cache
+     of the same heads. Each model is released before the next phase.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -164,6 +195,9 @@ chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
 
 ``--mesh-only`` runs phases 1-2 and then phase 10.
 
+``--serve-only`` runs phases 1-2 and then phase 11; ``--moe-only`` phases
+1-2 and then phases 12 and 13.
+
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the JAX package ``repro``.
@@ -172,6 +206,7 @@ and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -216,6 +251,18 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_call_ms(fn):
+    """``fn()`` once, and its device time in ms from CUDA events around it."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def paired_ms(fn, lib_fn, reps: int = 20) -> tuple[float, float]:
@@ -1106,7 +1153,8 @@ LM_CHECK = dict(batch=2, prompt=4608, steps=8)      # decode == forward, f32
 BF16_FLOPS = 989e12            # H100 SXM, bf16 on the tensor cores (dense)
 
 
-def k5_bound(q, k, v, *, causal=False, window=None, kv_len=None) -> tuple[float, str]:
+def k5_bound(q, k, v, *, causal=False, window=None, kv_len=None,
+             sm_scale=None) -> tuple[float, str]:
     """The least time for one K5 call: operations on the visible (query,
     key) pairs over the bf16 tensor-core peak (f32: the CUDA-core peak),
     or q, k, v read and the output written once over the HBM rate."""
@@ -1157,14 +1205,28 @@ def counted(kern, route: str, expected: dict) -> dict:
     return got
 
 
-def lm_serve(model, cfg, prompts, steps, kern, torch, device):
-    """Phase 7b, the main path: ``lm_prefill`` on the prompts, then greedy
-    ``lm_decode`` steps; the launch counters set to 0 before the prefill and
-    before the decode steps, and read after each. Then a profiler window
-    over 5 more decode steps."""
+def lm_expect(cfg) -> dict:
+    """The launches of one prefill and of one decode step, by kernel and by
+    K5 variant: K5 once a layer ("tc" prefill, "split" decode; an MLA
+    decode attends in plain torch and launches none), K2 once a layer for
+    an MoE's router."""
+    L = cfg.n_layers
+    pre, step = {"K5": L}, {} if cfg.mla is not None else {"K5": L}
+    if cfg.moe is not None:
+        pre["K2"] = step["K2"] = L
+    return {"prefill": pre, "step": step, "prefill_by": {"tc": L},
+            "step_by": {"split": L} if "K5" in step else {}}
+
+
+def lm_serve(model, cfg, prompts, steps, kern, torch, device, tag="7"):
+    """Phase 7b (and 12, 13), the main path: ``lm_prefill`` on the prompts,
+    then greedy ``lm_decode`` steps; the launch counters set to 0 before the
+    prefill and before the decode steps, read after each and after every
+    step (:func:`lm_expect`). Then a profiler window over 5 more decode
+    steps."""
     from repro_torch.models.transformer import lm_decode, lm_prefill
     B, S = prompts.shape
-    L = cfg.n_layers
+    expect = lm_expect(cfg)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset(kern)
@@ -1172,48 +1234,52 @@ def lm_serve(model, cfg, prompts, steps, kern, torch, device):
     logits, cache = lm_prefill(model, prompts, cfg, max_len=S + steps, device=device)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"lm:prefill": counted(kern, "lm:prefill", {"K5": L})}
-    variants = {"lm:prefill": k5_variants(kern, "lm:prefill", {"tc": L})}
+    launches = {"lm:prefill": counted(kern, "lm:prefill", expect["prefill"])}
+    variants = {"lm:prefill": k5_variants(kern, "lm:prefill", expect["prefill_by"])}
     require(bool(torch.isfinite(logits.float()).all()), "prefill logits not finite")
     tok = logits.argmax(-1, keepdim=True)
     step_ms, out = [], [tok]
     reset(kern)
     for t in range(steps):
-        before = kern["K5"].launches
+        before = {name: fn.launches for name, fn in kern.items()}
         t0 = time.perf_counter()
         logits, cache = lm_decode(model, cache, tok, S + t, cfg, device=device)
         tok = logits.argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        require(kern["K5"].launches - before == L, f"decode step {t}: "
-                f"{kern['K5'].launches - before} K5 launches, expected {L}")
+        got = {name: fn.launches - before[name] for name, fn in kern.items()}
+        want = {name: expect["step"].get(name, 0) for name in kern}
+        require(got == want, f"decode step {t}: launches {got}, expected {want}")
         out.append(tok)
-    launches["lm:decode"] = counted(kern, "lm:decode", {"K5": L * steps})
-    variants["lm:decode"] = k5_variants(kern, "lm:decode", {"split": L * steps})
+    launches["lm:decode"] = counted(kern, "lm:decode",
+                                    {n: c * steps for n, c in expect["step"].items()})
+    variants["lm:decode"] = k5_variants(kern, "lm:decode",
+                                        {n: c * steps for n, c in expect["step_by"].items()})
     gen = torch.cat(out, dim=1)
     require(bool(torch.isfinite(logits.float()).all()) and gen.shape == (B, steps + 1)
             and bool(((gen >= 0) & (gen < cfg.vocab)).all()), "decode output malformed")
-    profile_window("7", "lm decode", lambda i: lm_decode(model, cache, tok, S + steps + i, cfg,
+    profile_window(tag, "lm decode", lambda i: lm_decode(model, cache, tok, S + steps + i, cfg,
                                                           device=device), range(6), kern)
     t = np.array(step_ms)
+    slots = cache["ckv"].shape[2] if cfg.mla is not None else cache["k"].shape[3]
     r = dict(prefill_ms=prefill_ms, p50=float(np.percentile(t, 50)),
              p99=float(np.percentile(t, 99)), tok_s=B * steps / (t.sum() / 1e3),
-             peak=torch.cuda.max_memory_allocated() - base, slots=cache["k"].shape[3],
-             variants=variants)
-    print(f"[7] served {B} prompts x {S} tokens: prefill wall {prefill_ms:.1f} ms "
+             peak=torch.cuda.max_memory_allocated() - base, slots=slots, variants=variants)
+    print(f"[{tag}] served {B} prompts x {S} tokens: prefill wall {prefill_ms:.1f} ms "
           f"({B * S / prefill_ms * 1e3:.0f} prompt tokens/s); {steps} greedy decode steps "
           f"against a ring of {r['slots']} slots: step wall p50 {r['p50']:.3f} ms p99 "
-          f"{r['p99']:.3f} ms, {r['tok_s']:.1f} tokens/s (batch {B}); K5 launches "
-          f"{launches['lm:prefill']['K5']} in the prefill ({variants['lm:prefill']}), {L} in "
-          f"each decode step ({variants['lm:decode']} over the {steps} steps); "
-          f"max_memory_allocated {r['peak']} B above the {base} B held before the prefill (the "
-          f"weights and what earlier phases hold)", flush=True)
+          f"{r['p99']:.3f} ms, {r['tok_s']:.1f} tokens/s (batch {B}); launches "
+          f"{launches['lm:prefill']} in the prefill (K5 {variants['lm:prefill']}), "
+          f"{expect['step']} in each decode step (K5 {variants['lm:decode']} over the {steps} "
+          f"steps); max_memory_allocated {r['peak']} B above the {base} B held before the "
+          f"prefill (the weights and what earlier phases hold)", flush=True)
     return r, launches, cache
 
 
-def sdpa_mask(torch, Sq, Skv, device, *, causal=False, window=None, kv_len=None):
+def sdpa_mask(torch, Sq, Skv, device, *, causal=False, window=None, kv_len=None,
+              sm_scale=None):
     """(Sq, Skv) bool, True where a query sees a key: K5's masks for
-    ``scaled_dot_product_attention``."""
+    ``scaled_dot_product_attention`` (the scale masks nothing)."""
     qpos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
     kpos = torch.arange(Skv, device=device)[None, :]
     mask = (kpos < (Skv if kv_len is None else kv_len)).expand(Sq, Skv)
@@ -1273,7 +1339,7 @@ def k5_rows_within(name, torch, got, want, row_tol, against="twin") -> float:
     return excess
 
 
-def k5_check(name, k5, ref, torch, a, b, c, kw) -> dict:
+def k5_check(name, k5, ref, torch, a, b, c, kw, tag="7") -> dict:
     """One K5 case against the twin: bitwise for f32; for bf16 within
     ``max(2·max|SDPA − twin|, 2⁻⁸·max|twin|)`` over the whole output and
     within :func:`k5_row_tol` on every row, SDPA being
@@ -1284,17 +1350,17 @@ def k5_check(name, k5, ref, torch, a, b, c, kw) -> dict:
     first keys)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import variant
-    got, want = k5(a, b, c, **kw), ref.flash_attention_ref(a, b, c, **kw)
-    torch.cuda.synchronize()
+    got = k5(a, b, c, **kw)
+    want, plain_ms = cuda_call_ms(lambda: ref.flash_attention_ref(a, b, c, **kw))
     err = max_abs_err(got.float(), want.float())
-    r = dict(err=err)
+    r = dict(err=err, plain_ms=plain_ms)
     if a.dtype == torch.float32:
         require(same_bits(got, want), f"K5 != twin ({name})")
         held = "bitwise == twin"
     else:
         mask = sdpa_mask(torch, a.shape[2], b.shape[2], a.device, **kw)
-        sdpa = torch.nan_to_num(F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
-                                                               enable_gqa=True), nan=0.0)
+        sdpa = torch.nan_to_num(F.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask, enable_gqa=True, scale=kw.get("sm_scale")), nan=0.0)
         r["sdpa_err"] = max_abs_err(sdpa.float(), want.float())
         r["tol"] = max(2 * r["sdpa_err"], 2.0 ** -8 * float(want.float().abs().max()))
         require(err <= r["tol"], f"K5 ({name}) off the twin by {err}, more than {r['tol']}")
@@ -1319,7 +1385,7 @@ def k5_check(name, k5, ref, torch, a, b, c, kw) -> dict:
         require(bool(torch.allclose(part, oracle, rtol=2e-2, atol=2e-2)),
                 f"K5 ({name}) off the dense oracle by {e} on the {span} {rows} query rows")
         del oracle, part
-    print(f"[7] K5 {name}: q {tuple(a.shape)} k {tuple(b.shape)} v {tuple(c.shape)} "
+    print(f"[{tag}] K5 {name}: q {tuple(a.shape)} k {tuple(b.shape)} v {tuple(c.shape)} "
           f"{a.dtype} {kw}: {held} (max abs err {err}); max abs err against the dense oracle "
           f"{r['oracle_err']} on the {' and '.join(spans)} {rows} query rows", flush=True)
     return r
@@ -1335,7 +1401,6 @@ def k5_checks(model, cfg, prompts, cache, k5, ref, torch):
     back-to-back calls, and around a CUDA graph of the same calls (the
     device's time without the host's launch cost), kernel and SDPA in
     turns (kernel, SDPA, SDPA, kernel)."""
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import split_plan
     from repro_torch.models.common import rms_norm
     from repro_torch.models.transformer import _qkv
@@ -1372,31 +1437,41 @@ def k5_checks(model, cfg, prompts, cache, k5, ref, torch):
     for r in out.values():
         r.pop("row_tol", None)
     for name in ("prefill", "decode"):
-        a, b, c, kw = cases[name]
-        mask = sdpa_mask(torch, a.shape[2], b.shape[2], a.device, **kw)
-        sdpa = lambda: F.scaled_dot_product_attention(a, b, c, attn_mask=mask,  # noqa: E731
-                                                      enable_gqa=True)
-        kernel = lambda: k5(a, b, c, **kw)                                     # noqa: E731
-        reps = 5 if name == "prefill" else 50
-        r = out[name]
-        timed = {"ms": [], "library_ms": [], "graph_ms": [], "library_graph_ms": []}
-        for key, fn in (("", kernel), ("library_", sdpa), ("library_", sdpa), ("", kernel)):
-            timed[f"{key}ms"].append(cuda_ms(fn, reps=reps))
-            timed[f"{key}graph_ms"].append(graph_ms(fn, reps=reps))
-        r.update({key: float(np.mean(t)) for key, t in timed.items()})
+        k5_timing(name, out[name], cases[name], k5, ref, torch,
+                  reps=5 if name == "prefill" else 50)
+    return out
+
+
+def k5_timing(name, r, case, k5, ref, torch, reps, tag="7") -> None:
+    """K5 on ``case`` (q, k, v, kwargs) timed beside the twin,
+    ``scaled_dot_product_attention`` (``enable_gqa`` and a boolean mask)
+    and the bound: CUDA events around back-to-back calls, and around a CUDA
+    graph of the same calls, kernel and SDPA in turns (kernel, SDPA, SDPA,
+    kernel). The times go into ``r``."""
+    import torch.nn.functional as F
+    a, b, c, kw = case
+    mask = sdpa_mask(torch, a.shape[2], b.shape[2], a.device, **kw)
+    sdpa = lambda: F.scaled_dot_product_attention(a, b, c, attn_mask=mask,  # noqa: E731
+                                                  enable_gqa=True, scale=kw.get("sm_scale"))
+    kernel = lambda: k5(a, b, c, **kw)                                     # noqa: E731
+    timed = {"ms": [], "library_ms": [], "graph_ms": [], "library_graph_ms": []}
+    for key, fn in (("", kernel), ("library_", sdpa), ("library_", sdpa), ("", kernel)):
+        timed[f"{key}ms"].append(cuda_ms(fn, reps=reps))
+        timed[f"{key}graph_ms"].append(graph_ms(fn, reps=reps))
+    r.update({key: float(np.mean(t)) for key, t in timed.items()})
+    if "plain_ms" not in r:       # k5_check timed the twin's call that it held K5 to
         r["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(a, b, c, **kw), reps=1,
                                 warmup=1)
-        r["bound"] = k5_bound(a, b, c, **kw)
-        r["shape"] = (f"q {tuple(a.shape)}, k/v {tuple(b.shape)}, {a.dtype}, "
-                      f"{', '.join(f'{key}={val}' for key, val in kw.items())}")
-        print(f"[7] K5 {name} timing: kernel {r['ms']:.4f} ms ({timed['ms']}), in a CUDA graph "
-              f"{r['graph_ms']:.4f} ms ({timed['graph_ms']}); scaled_dot_product_attention "
-              f"{r['library_ms']:.4f} ms ({timed['library_ms']}), in a CUDA graph "
-              f"{r['library_graph_ms']:.4f} ms ({timed['library_graph_ms']}); twin "
-              f"{r['plain_ms']:.1f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}): the "
-              f"kernel at {r['bound'][0] / r['ms'] * 100:.1f} % of it "
-              f"({r['bound'][0] / r['graph_ms'] * 100:.1f} % in the graph)", flush=True)
-    return out
+    r["bound"] = k5_bound(a, b, c, **kw)
+    r["shape"] = (f"q {tuple(a.shape)}, k {tuple(b.shape)}, v {tuple(c.shape)}, {a.dtype}, "
+                  f"{', '.join(f'{key}={val}' for key, val in kw.items())}")
+    print(f"[{tag}] K5 {name} timing: kernel {r['ms']:.4f} ms ({timed['ms']}), in a CUDA graph "
+          f"{r['graph_ms']:.4f} ms ({timed['graph_ms']}); scaled_dot_product_attention "
+          f"{r['library_ms']:.4f} ms ({timed['library_ms']}), in a CUDA graph "
+          f"{r['library_graph_ms']:.4f} ms ({timed['library_graph_ms']}); twin "
+          f"{r['plain_ms']:.1f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}): the "
+          f"kernel at {r['bound'][0] / r['ms'] * 100:.1f} % of it "
+          f"({r['bound'][0] / r['graph_ms'] * 100:.1f} % in the graph)", flush=True)
 
 
 def lm_check(arch, kern, torch, device="cuda", seed=1, check=LM_CHECK):
@@ -2555,9 +2630,280 @@ def mesh_phase(kern, ref, torch, device="cuda"):
     return launches, cases, walls_ms
 
 
+# -- phase 11: the serve launcher and the Crane & Lin baseline ------------------------
+
+SERVE_ARGS = dict(docs=20_000, queries=500, vocab=20_000, qps=20.0, k=10, memory_gb=2,
+                  partitions=0, replicas=1, hedge=0.0, kernel=False)   # the launcher's defaults
+SERVE_CPU_QUERIES = 20         # the first queries answered again by the same app on the CPU
+B2_QUERIES = 200               # benchmarks/run.py's B2 at its default 20,000 docs
+
+
+@contextlib.contextmanager
+def recorded_apps(module, name: str, apps: list):
+    """While open, every app built by ``module.name`` is appended to
+    ``apps`` with the ids of each answer it gives kept in ``app.answers``."""
+    build = getattr(module, name)
+
+    def recording(*args, **kw):
+        app = build(*args, **kw)
+        app.answers = []
+        query = app.query
+
+        def answer(*qargs, **qkw):
+            r = query(*qargs, **qkw)
+            app.answers.append(list(r.body["ids"]) if r.ok else None)
+            return r
+
+        app.query = answer
+        apps.append(app)
+        return app
+
+    setattr(module, name, recording)
+    try:
+        yield apps
+    finally:
+        setattr(module, name, build)
+
+
+def serve_phase(kern, torch, device="cuda"):
+    """Phase 11: ``python -m repro_torch.launch.serve`` on the card at its
+    defaults, through ``run_single(--kernel)`` and ``run_partitioned(
+    --partitions 4 --replicas 2)``: every response ok, the single run on K3
+    alone (one launch a query), its first answers equal to the same launcher's
+    on the CPU; then the reference's B2: ``KVPostingsIndex`` (Crane & Lin,
+    plain Python, modeled DynamoDB time) against the card's warm p50."""
+    from repro_torch.baselines.kvstore_search import KVPostingsIndex
+    from repro_torch.data.corpus import synth_corpus, synth_queries
+    from repro_torch.launch import serve
+    from repro_torch.search import service
+    t_phase = time.perf_counter()
+    args = argparse.Namespace(**dict(SERVE_ARGS, kernel=True), device=device)
+    reset(kern)
+    t0 = time.perf_counter()
+    with recorded_apps(serve, "build_search_app", []) as apps:
+        single = serve.run_single(args)
+    launches = {"serve:single": counted(kern, "serve:single", {"K3": args.queries})}
+    require(len(apps) == 1 and len(apps[0].answers) == args.queries
+            and all(a is not None for a in apps[0].answers), "serve: a response was not ok")
+    print(f"[11] run_single --kernel on the card ({time.perf_counter() - t0:.1f} s; "
+          f"launches {launches['serve:single']}): {json.dumps(single)}", flush=True)
+    cpu_args = argparse.Namespace(**dict(vars(args), queries=SERVE_CPU_QUERIES, device="cpu"))
+    t0 = time.perf_counter()
+    with recorded_apps(serve, "build_search_app", []) as cpu_apps:
+        serve.run_single(cpu_args)
+    require(cpu_apps[0].answers == apps[0].answers[:SERVE_CPU_QUERIES],
+            "serve: the card's ids != the CPU's")
+    print(f"[11] the first {SERVE_CPU_QUERIES} answers' ids equal the same launcher's on the CPU "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del apps, cpu_apps
+    part_args = argparse.Namespace(**dict(vars(args), kernel=False, partitions=4, replicas=2))
+    t0 = time.perf_counter()
+    with recorded_apps(service, "build_partitioned_search_app", []) as fleets:
+        fleet = serve.run_partitioned(part_args)
+    require(len(fleets[0].answers) == args.queries
+            and all(a is not None for a in fleets[0].answers), "serve: a fleet response not ok")
+    print(f"[11] run_partitioned --partitions 4 --replicas 2 on the card "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(fleet)}", flush=True)
+    del fleets
+
+    # B2 (benchmarks/run.py's bench_baseline), through the port
+    t0 = time.perf_counter()
+    docs = synth_corpus(args.docs, vocab=max(2000, args.docs // 2), seed=0)
+    queries = synth_queries(docs, B2_QUERIES, seed=2)
+    kv = KVPostingsIndex()
+    kv.build(docs)
+    kv_lat = [kv.search(q)[1] for q in queries]
+    app = service.build_search_app(docs, device=device)
+    t = 0.0
+    for q in queries:
+        require(app.query(q, t_arrival=t).ok, "B2: a response was not ok")
+        t = app.runtime.clock + 0.05
+    warm = [r.latency_s for r in app.runtime.records if not r.cold]
+    kv_p50, our_p50 = float(np.median(kv_lat)), float(np.median(warm))
+    b2 = {"kvstore_baseline_p50_ms": round(kv_p50 * 1e3, 1),
+          "anlessini_warm_p50_ms": round(our_p50 * 1e3, 1),
+          "speedup_x": round(kv_p50 / max(our_p50, 1e-9), 1)}
+    print(f"[11] B2 vs Crane & Lin '17 ({args.docs} docs, {B2_QUERIES} queries, "
+          f"{time.perf_counter() - t0:.1f} s): {json.dumps(b2)}", flush=True)
+    print(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, {"single": single, "partitioned": fleet, "b2": b2}
+
+
+# -- phases 12 and 13: the MoE and MLA LMs with expert-parallel MoE -------------------
+
+MOE_RUNS = {
+    # olmoe at full_config(); deepseek-v2 at full width on 4 of its 60 layers
+    "olmoe-1b-7b": dict(tag="12", layers=None, batch=4, prompt=4096, steps=32),
+    "deepseek-v2-236b": dict(tag="13", layers=4, batch=2, prompt=2048, steps=16),
+}
+EP_MESH = (1, 4)               # the EP check's stacked ("data", "model") mesh
+# |EP − global| <= EP_TOL · max|global| on layer 0's routed FFN: the psum of
+# 4 partials and one sequential sum of up to K bf16 adds round at other
+# points, each add by up to 2^-9 of its partial sum: K · 2^-8 at K 8.
+EP_TOL = 2.0 ** -5
+
+
+def latent_cache_line(cfg, cache) -> str:
+    """The MLA latent cache's bytes beside a GQA cache of the same heads
+    (k of the qk dim, v of the v dim, every head)."""
+    m = cfg.mla
+    latent = sum(t.numel() * t.element_size() for t in cache.values())
+    L, B, slots, _ = cache["ckv"].shape
+    gqa = L * B * slots * cfg.n_heads * (m.nope_dim + m.rope_dim + m.v_dim) * \
+        cache["ckv"].element_size()
+    return (f"latent cache {latent} B (ckv {tuple(cache['ckv'].shape)} + krope "
+            f"{tuple(cache['krope'].shape)}) against {gqa} B for k/v of the same {cfg.n_heads} "
+            f"heads: {gqa / latent:.1f}x smaller")
+
+
+def moe_layer0(model, cfg, prompts, torch):
+    """Layer 0 on the prompts: its attention's q/k/v and K5 arguments, and
+    the FFN's input (the hidden states the router sees)."""
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import _mla_qkv, _qkv
+    lp = model.layers[0]
+    S = prompts.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=prompts.device)
+    x = model.embed[prompts.long()]
+    h = rms_norm(x, lp["ln1"])
+    if cfg.mla is not None:
+        m = cfg.mla
+        B, H = prompts.shape[0], cfg.n_heads
+        q_nope, q_rope, c_kv, k_rope = _mla_qkv(lp["attn"], h, cfg, positions)
+        kv = (c_kv @ lp["attn"]["wkv_b"]).reshape(B, S, H, m.nope_dim + m.v_dim).transpose(1, 2)
+        q = torch.cat([q_nope, q_rope], dim=-1).contiguous()
+        k = torch.cat([kv[..., :m.nope_dim], k_rope[:, None].expand(B, H, S, m.rope_dim)],
+                      dim=-1).contiguous()
+        v = kv[..., m.nope_dim:].contiguous()
+        kw = dict(causal=True, sm_scale=1.0 / math.sqrt(m.nope_dim + m.rope_dim))
+    else:
+        q, k, v = (t.contiguous() for t in _qkv(lp["attn"], h, cfg, positions))
+        kw = dict(causal=True, window=cfg.window)
+    o = attention(q, k, v, **kw)
+    a = o.transpose(1, 2).reshape(*x.shape[:2], -1) @ lp["attn"]["wo"]
+    return (q, k, v, kw), rms_norm(x + a, lp["ln2"])
+
+
+def ep_check(ffn, h, cfg, kern, torch, tag) -> dict:
+    """Layer 0's routed FFN on the prompts' real hidden states: the
+    expert-parallel path on a stacked ``EP_MESH`` mesh against the global
+    dispatch (``moe_ffn``): the kept assignments and slot tables equal,
+    the outputs within ``EP_TOL``; the global combine run twice, equal bit
+    for bit."""
+    from repro_torch.models import moe
+    from repro_torch.models.moe_ep import ep_moe_ffn, ep_tables
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    mesh = StackedMesh(EP_MESH, device=h.device)
+    _, keep, slots = moe._tables(ffn, h, cfg.moe)
+    y, aux = moe.moe_ffn(ffn, h, cfg.moe)
+    again, _ = moe.moe_ffn(ffn, h, cfg.moe)
+    with use_mesh(mesh):
+        ep_keep, ep_slots = ep_tables(ffn, h, cfg.moe)
+        ep_y, ep_aux = ep_moe_ffn(ffn, h, cfg.moe)
+    torch.cuda.synchronize()
+    require(torch.equal(ep_keep, keep.reshape(ep_keep.shape)) and torch.equal(ep_slots, slots),
+            "EP's kept assignments or slot tables != the global dispatch's")
+    require(same_bits(y, again), "the MoE combine is not deterministic")
+    err, top = max_abs_err(ep_y, y), float(y.float().abs().max())
+    require(err <= EP_TOL * top, f"EP off the global dispatch by {err}, more than "
+                                 f"{EP_TOL} of {top}")
+    T, K = keep.shape
+    r = dict(err=err, tol=EP_TOL * top, kept=int(keep.sum()), dropped=T * K - int(keep.sum()),
+             capacity=slots.shape[1], aux=float(aux), ep_aux=float(ep_aux))
+    print(f"[{tag}] EP on a stacked {EP_MESH} mesh against the global dispatch on layer 0's "
+          f"{T} tokens: kept assignments and the ({cfg.moe.n_experts}, {r['capacity']}) slot "
+          f"table equal ({r['kept']} kept, {r['dropped']} dropped); outputs max abs err {err} "
+          f"(tolerance {r['tol']:.4g} = {EP_TOL} x max|y| {top}); aux {r['aux']} vs "
+          f"{r['ep_aux']}; the global combine twice: equal bit for bit", flush=True)
+    return r
+
+
+def moe_phase(kern, ref, torch, arch_name, device="cuda", seed=0):
+    """Phase 12 (olmoe-1b-7b at ``full_config()``) or 13 (deepseek-v2-236b
+    at full width on 4 layers): bf16 weights from a seeded
+    ``torch.Generator`` on the card, served as shipped (``moe_impl="ep"``)
+    under a stacked (1, 1) mesh; :func:`lm_serve` with the launch counters
+    checked; a profiler window over one prefill; K5 and K2 against their
+    twins on layer 0's real inputs and timed; EP against the global
+    dispatch (:func:`ep_check`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMDataConfig, LMTokenStream
+    from repro_torch.models.common import count_params, init_params
+    from repro_torch.models.transformer import LM, lm_decode, lm_param_defs, lm_prefill
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    run = MOE_RUNS[arch_name]
+    tag = run["tag"]
+    t_phase = time.perf_counter()
+    cfg = get_arch(arch_name).full_config(**({"n_layers": run["layers"]} if run["layers"] else {}))
+    defs = lm_param_defs(cfg)
+    t0 = time.perf_counter()
+    model = LM(init_params(defs, torch.Generator(device).manual_seed(seed), device), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    require(n_params == count_params(defs) == cfg.param_count(), "parameter count")
+    mo = cfg.moe
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{'MLA ' + str(cfg.mla) if cfg.mla else f'{cfg.n_kv_heads} kv heads of {cfg.dh}'}, "
+          f"MoE {mo.n_experts} experts top-{mo.top_k} of d_ff {mo.d_ff} + {mo.n_shared} shared, "
+          f"cf {mo.capacity_factor}, moe_impl {cfg.moe_impl!r}, vocab {cfg.vocab}, {cfg.dtype}: "
+          f"{n_params} parameters ({cfg.active_param_count()} active a token), {n_bytes} B, "
+          f"made from seed {seed} in {time.perf_counter() - t0:.1f} s", flush=True)
+    B, S, steps = run["batch"], run["prompt"], run["steps"]
+    prompts = torch.as_tensor(LMTokenStream(LMDataConfig(
+        vocab=cfg.vocab, batch=B, seq=S, seed=seed)).batch(0)["tokens"]).to(device)
+    with use_mesh(StackedMesh((1, 1), device=device)), torch.inference_mode():
+        # warm the libraries up for both shapes: a short prefill and one decode step
+        logits, cache = lm_prefill(model, prompts[:, :128], cfg, max_len=128 + steps,
+                                   device=device)
+        lm_decode(model, cache, logits.argmax(-1, keepdim=True), 128, cfg, device=device)
+        del logits, cache
+        torch.cuda.synchronize()
+        serve_r, launches, cache = lm_serve(model, cfg, prompts, steps, kern, torch, device,
+                                            tag=tag)
+        if cfg.mla is not None:
+            print(f"[{tag}] {latent_cache_line(cfg, cache)}", flush=True)
+        profile_window(tag, "lm prefill", lambda i: lm_prefill(
+            model, prompts, cfg, max_len=S + steps, device=device), range(2), kern)
+        attn, h = moe_layer0(model, cfg, prompts, torch)
+        k5 = {"prefill": k5_check("prefill", kern["K5"], ref, torch, *attn, tag=tag)}
+        k5_timing("prefill", k5["prefill"], attn, kern["K5"], ref, torch, reps=5, tag=tag)
+        if cfg.mla is None:
+            slots = cache["k"].shape[3]
+            dec = (attn[0][:, :, -1:].contiguous(), cache["k"][0], cache["v"][0],
+                   dict(kv_len=slots))
+            k5["decode"] = k5_check("decode", kern["K5"], ref, torch, *dec, tag=tag)
+            k5_timing("decode", k5["decode"], dec, kern["K5"], ref, torch, reps=50, tag=tag)
+        for r in k5.values():
+            r.pop("row_tol", None)
+        ffn = model.layers[0]["ffn"]
+        probs = torch.softmax(h.reshape(-1, cfg.d_model).float() @ ffn["router"], dim=-1)
+        k2 = k2_case(kern["K2"], ref, torch, probs, mo.top_k, f"{cfg.name} router")
+        print_case(tag, f"K2 ({cfg.name}'s router, layer 0)", k2)
+        ep = ep_check(ffn, h, cfg, kern, torch, tag)
+    del model, cache, attn, h, probs, ffn
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = arch_name.split("-")[0]
+    launches = {f"{name}:{route.split(':')[1]}": c for route, c in launches.items()}
+    print(f"[{tag}] phase {tag} took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(serve=serve_r, launches=launches, k5=k5, k2=k2, ep=ep)
+
+
+def moe_entry(r) -> dict:
+    """Phase 12's or 13's results for the JSON lines."""
+    return {"serve": {key: r["serve"][key] for key in ("prefill_ms", "p50", "p99", "tok_s",
+                                                       "peak", "variants")},
+            "launches_by_route": r["launches"], "ep": r["ep"],
+            "k5": {case: case_entry(c) for case, c in r["k5"].items()},
+            "k2": case_entry(r["k2"])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--docs", type=int, default=1_000_000)
+    ap.add_argument("--docs", type=int, default=500_000,
+                    help="passages of phases 3-6's corpus (the single node and the fleet)")
     ap.add_argument("--lm-only", action="store_true",
                     help="phases 1, 2 and 7 only (a shake-out of the LM path; prints no "
                          "ok line)")
@@ -2579,6 +2925,12 @@ def main() -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="phases 1, 2 and 10 only (a shake-out of the mesh path; prints no ok "
                          "line)")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="phases 1, 2 and 11 only (a shake-out of the serve launcher and the "
+                         "baseline; prints no ok line)")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="phases 1, 2, 12 and 13 only (a shake-out of the MoE and MLA LMs; "
+                         "prints no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -2681,6 +3033,20 @@ def main() -> int:
         print(smi, flush=True)
         print("chip_smoke: --mesh-only, a partial run", flush=True)
         return 0
+    if args.serve_only:
+        serve_launches, serve_out = serve_phase(kern, torch)
+        print(json.dumps({"serve_only": {"launches_by_route": serve_launches, **serve_out}}),
+              flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --serve-only, a partial run", flush=True)
+        return 0
+    if args.moe_only:
+        moe = {name: moe_phase(kern, ref, torch, name) for name in MOE_RUNS}
+        print(json.dumps({"moe_only": {name: moe_entry(r) for name, r in moe.items()}}),
+              flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --moe-only, a partial run", flush=True)
+        return 0
 
     # 3. data at real scale
     t0 = time.perf_counter()
@@ -2754,6 +3120,23 @@ def main() -> int:
     launches.update(mesh_launches)
     print(f"[10] phases 1-10 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 11. the serve launcher (--kernel: K3) and the Crane & Lin baseline (B2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launches, serve_out = serve_phase(kern, torch)
+    launches.update(serve_launches)
+    print(f"[11] phases 1-11 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 12, 13. olmoe-1b-7b and deepseek-v2-236b (4 layers) at full width, EP as shipped
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = {}
+    for name in MOE_RUNS:
+        moe[name] = moe_phase(kern, ref, torch, name)
+        launches.update(moe[name]["launches"])
+        print(f"[{MOE_RUNS[name]['tag']}] phases 1-{MOE_RUNS[name]['tag']} took "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     Q = len(queries)
     meta = {
         "K3": ("bm25_block_impacts", "src/repro_torch/kernels/csrc/bm25_block.cu",
@@ -2786,9 +3169,12 @@ def main() -> int:
                                     "bert4rec vocabulary": case_entry(results["bert4rec"]["k2_vocab"])}
     line["kernels"][1]["shapes"].update(
         {f"mesh {name}": case_entry(r) for name, r in mesh_cases.items()})
+    line["kernels"][1]["shapes"].update(
+        {f"{name} router": case_entry(r["k2"]) for name, r in moe.items()})
     line["kernels"][1]["mesh_walls_ms"] = mesh_walls
     line["kernels"][1]["launches_on"] = [COUNTED_ON["K2"]] + [
-        route for route, c in mesh_launches.items() if c["K2"]]
+        route for route, c in mesh_launches.items() if c["K2"]] + [
+        route for r in moe.values() for route, c in r["launches"].items() if c["K2"]]
     line["kernels"][1]["structured_device_us"] = {
         key: v for key, (v, _) in split.items()}
     line["kernels"].append({
@@ -2803,6 +3189,10 @@ def main() -> int:
                  f"{k4[Q]['survivors']} survivors",
         "shapes": {f"Q={q}": case_entry(k4[q]) for q in sorted(k4)}})
     line["kernels"].append(k5_line(serve, k5, launches))
+    line["kernels"][-1]["shapes"] = {f"{name} {case}": case_entry(c) for name, r in moe.items()
+                                     for case, c in r["k5"].items()}
+    line["kernels"][-1]["moe"] = {name: moe_entry(r) for name, r in moe.items()}
+    line["kernels"][0]["serve_launcher"] = serve_out
     line["kernels"].append(k6_line(results, rs_launches, k6_err))
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

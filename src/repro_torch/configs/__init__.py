@@ -1,7 +1,8 @@
-"""Architecture registry of the port: the dense LMs and the recsys models
-whose serving paths are ported, and the paper's own search geometry, under
-the reference's ids. Each module exposes ``FAMILY``, ``full_config()`` and
-``reduced_config()``; ``rules``/``cells`` wait for ROADMAP Queue 1 item 10."""
+"""Architecture registry of the port: the LMs (dense, MoE and MLA + MoE)
+and the recsys models whose serving paths are ported, and the paper's own
+search geometry, under the reference's ids. Each module exposes
+``FAMILY``, ``full_config()`` and ``reduced_config()``; ``rules``/``cells``
+wait for ROADMAP Queue 1 item 10."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ ARCH_MODULES = {
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     # recsys
     "fm": "repro_torch.configs.fm",
     "bst": "repro_torch.configs.bst",

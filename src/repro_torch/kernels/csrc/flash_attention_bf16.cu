@@ -32,7 +32,10 @@
 // tile's products. The online softmax stays in registers: a row's max and
 // sum by two shuffles within the 4 threads that hold it; P is packed to bf16
 // straight from the S accumulators into P . V's A fragments. D and Dv are
-// padded with zeros to 64, 80, 128 or 256 in shared memory. Key tiles that
+// padded with zeros to 64, 80, 128 or 256 in shared memory, or, for D in
+// (128, 192] with Dv <= 128 (MLA's qk 192 and v 128), D to 192 and Dv to
+// 128 apart: padding both to 256 wasted a quarter of Q . K^T and half of
+// P . V there. Key tiles that
 // no row of the block sees are skipped; tiles every row sees wholly skip
 // the mask arithmetic. (wgmma with TMA-fed tiles is the next step.)
 //
@@ -150,18 +153,19 @@ __device__ __forceinline__ bool visible(int kpos, int qpos, int causal, int wind
 
 // Tile i of a K/V ring of T-key tiles (keys key0 + i * T on, those past
 // `end` zero) into stage i % STAGES, if there is a tile i (i < n); then one
-// cp.async group closed, empty or not, so that each tile is one group.
-template <int P, int T, int STAGES>
+// cp.async group closed, empty or not, so that each tile is one group. K
+// rows are padded to P columns, V rows to PV.
+template <int P, int PV, int T, int STAGES>
 __device__ __forceinline__ void ring_issue(bf16* ks, bf16* vs, const bf16* kb, const bf16* vb,
                                            int i, int n, int key0, int end, int D, int Dv,
                                            bool vec, int tid, int threads) {
   if (i < n) {
-    constexpr int PITCH = P + 8;
+    constexpr int PITCH = P + 8, PITCH_V = PV + 8;
     const int key = key0 + i * T, st = i % STAGES;
     stage_rows(ks + st * T * PITCH, PITCH, kb + (long long)key * D, D, P, T, end - key, vec,
                tid, threads);
-    stage_rows(vs + st * T * PITCH, PITCH, vb + (long long)key * Dv, Dv, P, T, end - key, vec,
-               tid, threads);
+    stage_rows(vs + st * T * PITCH_V, PITCH_V, vb + (long long)key * Dv, Dv, PV, T, end - key,
+               vec, tid, threads);
   }
   cp_async_commit();
 }
@@ -235,8 +239,9 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4], float& m_a, floa
 }
 
 // MT m16 tiles of rows a warp, 8 / MT warps: a block is TC_BQ rows either
-// way; MT = 2 reads each K and V fragment once for two row tiles.
-template <int P, int MT>
+// way; MT = 2 reads each K and V fragment once for two row tiles. Q and K
+// padded to P columns, V and O to PV.
+template <int P, int MT, int PV = P>
 __global__ void __launch_bounds__(32 * (8 / MT), P <= 80 ? 2 : 1)
 flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o, int n_tiles, int rows,
@@ -246,12 +251,13 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int PITCH = P + 8;         // 16 bytes of pad: ldmatrix rows hit distinct banks
   constexpr int KSTEPS = P / 16;       // k-steps of S = Q . K^T
   constexpr int NS = TC_BK / 8;        // 8-key n-tiles of S
-  constexpr int NV = P / 8;            // 8-column n-tiles of O
+  constexpr int PITCH_V = PV + 8;
+  constexpr int NV = PV / 8;           // 8-column n-tiles of O
   constexpr bool Q_REGS = P * MT <= 128;   // hold Q's fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // TC_BQ x PITCH
   bf16* ks = qs + TC_BQ * PITCH;                  // TC_STAGES x TC_BK x PITCH
-  bf16* vs = ks + TC_STAGES * TC_BK * PITCH;      // TC_STAGES x TC_BK x PITCH
+  bf16* vs = ks + TC_STAGES * TC_BK * PITCH;      // TC_STAGES x TC_BK x PITCH_V
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long bh = blockIdx.x / n_tiles;
@@ -303,8 +309,8 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (n_kt > 0) stage_rows(qs, PITCH, qb, D, P, TC_BQ, n_rows, vec, tid, THREADS);
 #pragma unroll
   for (int st = 0; st < TC_STAGES - 1; ++st)            // the ring's first tiles
-    ring_issue<P, TC_BK, TC_STAGES>(ks, vs, kb, vb, st, n_kt, k_first, kv_end, D, Dv, vec, tid,
-                                    THREADS);
+    ring_issue<P, PV, TC_BK, TC_STAGES>(ks, vs, kb, vb, st, n_kt, k_first, kv_end, D, Dv, vec,
+                                        tid, THREADS);
 
   uint32_t qf[MT][Q_REGS ? KSTEPS : 1][4];
   const bf16* q_frag = qs + (warp * MT * 16 + (lane & 15)) * PITCH + (lane >> 4) * 8;
@@ -312,8 +318,8 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < n_kt; ++it) {
     const int k0 = k_first + it * TC_BK;
     // the tile TC_STAGES - 1 on, into the free stage
-    ring_issue<P, TC_BK, TC_STAGES>(ks, vs, kb, vb, it + TC_STAGES - 1, n_kt, k_first, kv_end, D,
-                                    Dv, vec, tid, THREADS);
+    ring_issue<P, PV, TC_BK, TC_STAGES>(ks, vs, kb, vb, it + TC_STAGES - 1, n_kt, k_first,
+                                        kv_end, D, Dv, vec, tid, THREADS);
     cp_async_wait<TC_STAGES - 1>();      // this tile (and Q) have landed
     __syncthreads();
     if (Q_REGS && it == 0) {
@@ -324,7 +330,7 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           ldmatrix_x4(qf[mt][kk], q_frag + mt * 16 * PITCH + kk * 16);
     }
     const bf16* kst = ks + (it % TC_STAGES) * TC_BK * PITCH;
-    const bf16* vst = vs + (it % TC_STAGES) * TC_BK * PITCH;
+    const bf16* vst = vs + (it % TC_STAGES) * TC_BK * PITCH_V;
 
     // S = Q . K^T: ldmatrix x4 gives b0/b1 of two 8-key n-tiles
     float s[MT][NS][4];
@@ -382,13 +388,13 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P . V
-    const bf16* v_frag = vst + (lane & 15) * PITCH + (lane >> 4) * 8;
+    const bf16* v_frag = vst + (lane & 15) * PITCH_V + (lane >> 4) * 8;
 #pragma unroll
     for (int j = 0; j < TC_BK / 16; ++j) {
 #pragma unroll
       for (int nn = 0; nn < NV / 2; ++nn) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, v_frag + j * 16 * PITCH + nn * 16);
+        ldmatrix_x4_trans(b, v_frag + j * 16 * PITCH_V + nn * 16);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(acc[mt][2 * nn], pa[mt][j], b[0], b[1]);
@@ -459,7 +465,8 @@ flash_split_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage_rows(qs, PITCH, q + bh * rows * (long long)D, D, P, 16, rows, vec, tid, THREADS);
 #pragma unroll
   for (int st = 0; st < SPLIT_STAGES - 1; ++st)         // the ring's first tiles
-    ring_issue<P, DT, SPLIT_STAGES>(ks, vs, kb, vb, st, n_t, s0, s_end, D, Dv, vec, tid, THREADS);
+    ring_issue<P, P, DT, SPLIT_STAGES>(ks, vs, kb, vb, st, n_t, s0, s_end, D, Dv, vec, tid,
+                                       THREADS);
 
   const int g = lane >> 2, t = lane & 3;
   const int qpos_a = g % q_seq + off, qpos_b = (g + 8) % q_seq + off;
@@ -471,8 +478,8 @@ flash_split_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* q_frag = qs + (lane & 15) * PITCH + (lane >> 4) * 8;
 
   for (int it = 0; it < n_t; ++it) {
-    ring_issue<P, DT, SPLIT_STAGES>(ks, vs, kb, vb, it + SPLIT_STAGES - 1, n_t, s0, s_end, D, Dv,
-                                    vec, tid, THREADS);
+    ring_issue<P, P, DT, SPLIT_STAGES>(ks, vs, kb, vb, it + SPLIT_STAGES - 1, n_t, s0, s_end, D,
+                                       Dv, vec, tid, THREADS);
     cp_async_wait<SPLIT_STAGES - 1>();   // tile `it` (and Q) have landed
     __syncthreads();
     if (Q_REGS && it == 0) {
@@ -608,12 +615,13 @@ cudaError_t set_smem(K kernel, size_t smem, size_t& granted) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int P, int MT>
+template <int P, int MT, int PV = P>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int bh, int rows, int q_seq,
               int kv_seq, int D, int Dv, int causal, int window, int kv_len, float scale_log2,
               int vec, cudaStream_t stream) {
-  auto kernel = flash_tc_fwd_kernel<P, MT>;
-  const size_t smem = sizeof(bf16) * (size_t)(TC_BQ + 2 * TC_STAGES * TC_BK) * (P + 8);
+  auto kernel = flash_tc_fwd_kernel<P, MT, PV>;
+  const size_t smem = sizeof(bf16) * ((size_t)(TC_BQ + TC_STAGES * TC_BK) * (P + 8) +
+                                      (size_t)TC_STAGES * TC_BK * (PV + 8));
   static size_t granted = 0;
   const cudaError_t err = set_smem(kernel, smem, granted);
   if (err != cudaSuccess) return (int)err;
@@ -663,10 +671,11 @@ REPRO_EXPORT int flash_attention_tc_launch(const void* q, const void* k, const v
   const int vec = vec_ok(q, k, v, D, Dv);
   const int p = max(D, Dv);
   cudaStream_t s = (cudaStream_t)stream;
-  auto tc = p <= 64    ? &launch_tc<64, 2>
-            : p <= 80  ? &launch_tc<80, 2>
-            : p <= 128 ? &launch_tc<128, 1>
-                       : &launch_tc<256, 1>;
+  auto tc = p <= 64                ? &launch_tc<64, 2>
+            : p <= 80              ? &launch_tc<80, 2>
+            : p <= 128             ? &launch_tc<128, 1>
+            : D <= 192 && Dv <= 128 ? &launch_tc<192, 1, 128>
+                                   : &launch_tc<256, 1>;
   return tc(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window, kv_len, scale_log2, vec,
             s);
 }

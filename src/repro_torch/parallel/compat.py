@@ -295,6 +295,8 @@ def _current() -> Mesh:
 
 
 def _tree_map(fn: Callable, tree: Any, specs: Any) -> Any:
+    if specs is None and tree is None:          # an empty subtree, as in JAX
+        return None
     if isinstance(specs, P):
         return fn(tree, specs)
     if isinstance(specs, dict):

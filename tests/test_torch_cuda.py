@@ -756,3 +756,70 @@ def test_bert4rec_sharded_topk_on_the_card_equals_unsharded(cuda):
     with use_mesh(StackedMesh((1, 4), device=cuda)):
         got = bert4rec_serve_topk(params, seq, dataclasses.replace(cfg, sharded_topk=True), k=10)
     assert _bits(got[0], want[0]) and _bits(got[1], want[1])
+
+
+@pytest.mark.parametrize("T,E,k", [(16_384, 64, 8), (4_096, 160, 6), (4, 64, 8), (2, 160, 6)])
+def test_topk_kernel_at_router_widths(cuda, T, E, k):
+    """K2 on MoE router probabilities (olmoe: 64 experts top-8, deepseek-v2:
+    160 top-6; prefill and decode rows), one launch a call, bitwise; ties
+    in every row go to the lowest expert id."""
+    g = torch.Generator(device=cuda).manual_seed(T + E)
+    probs = torch.softmax(torch.randn(T, E, generator=g, device=cuda), dim=-1)
+    probs[::7, : E // 2] = 1.0 / E                          # wide ties
+    before = topk.launches
+    gv, gi = topk(probs, k)
+    assert topk.launches == before + 1
+    wv, wi = ref.topk_ref(probs, k)
+    assert _bits(gv, wv) and _bits(gi, wi)
+
+
+def test_flash_attention_tc_at_mla_widths(cuda):
+    """K5's tensor-core prefill at deepseek-v2's MLA widths (qk dim 192, v
+    dim 128, MHA, sm_scale 1/sqrt(192)): within :func:`assert_k5_tolerance`
+    of the twin and 2e-2 of the dense oracle."""
+    g = torch.Generator(device=cuda).manual_seed(192)
+    B, H, S, D, Dv = 2, 16, 600, 192, 128
+    q, k = (torch.randn(B, H, S, D, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(B, H, S, Dv, generator=g, device=cuda).to(torch.bfloat16)
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    assert variant(q.dtype, S) == "tc"
+    before = flash_attention.launches_by["tc"]
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches_by["tc"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    mask = ref.attention_mask(torch.arange(S, device=cuda), torch.arange(S, device=cuda),
+                              causal=True, window=None, kv_len=S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                            scale=kw["sm_scale"])
+    assert got.shape == (B, H, S, Dv)
+    assert_k5_tolerance(got, want, sdpa)
+    oracle = ref.mha_attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), oracle, rtol=2e-2, atol=2e-2)
+
+
+def test_moe_combine_is_deterministic_on_the_card(cuda):
+    """The MoE FFN in bf16 on the card, run twice: equal bit for bit (the
+    combine sums each token's slots in ascending expert order, no atomics);
+    expert parallelism on a stacked (1, 1) mesh gives the same bits, and on
+    (1, 4) the global dispatch's slot tables."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe_ep import ep_moe_ffn, ep_tables
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    cfg = moe.MoEConfig(n_experts=64, top_k=8, d_model=256, d_ff=128, n_shared=1)
+    params = init_params(moe.moe_defs(cfg, torch.bfloat16), torch.Generator().manual_seed(0),
+                         cuda)
+    x = torch.randn(4, 512, 256, generator=torch.Generator().manual_seed(1)).to(
+        cuda, torch.bfloat16)
+    y1, aux1 = moe.moe_ffn(params, x, cfg)
+    y2, aux2 = moe.moe_ffn(params, x, cfg)
+    same = lambda a, b: torch.equal(a.view(torch.int16), b.view(torch.int16))  # noqa: E731
+    assert same(y1, y2) and float(aux1) == float(aux2)
+    with use_mesh(StackedMesh((1, 1), device=cuda)):
+        ye, _ = ep_moe_ffn(params, x, cfg)
+    assert same(ye, y1)
+    _, keep, slots = moe._tables(params, x, cfg)
+    with use_mesh(StackedMesh((1, 4), device=cuda)):
+        ep_keep, ep_slots = ep_tables(params, x, cfg)
+    assert torch.equal(ep_keep, keep) and torch.equal(ep_slots, slots)

@@ -48,6 +48,10 @@ def test_every_module_imports_without_jax_or_repro():
         mesh = ["repro_torch.parallel", "repro_torch.parallel.compat",
                 "repro_torch.search.distributed", "repro_torch.configs.anlessini"]
         assert set(mesh) <= set(names), sorted(set(mesh) - set(names))
+        serve_moe = ["repro_torch.baselines.kvstore_search", "repro_torch.launch.serve",
+                     "repro_torch.models.moe", "repro_torch.models.moe_ep",
+                     "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v2_236b"]
+        assert set(serve_moe) <= set(names), sorted(set(serve_moe) - set(names))
         spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -59,7 +63,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 55          # every module was walked
+    assert int(out.stdout.strip()) >= 61          # every module was walked
 
 
 def test_sources_name_neither_jax_nor_repro():
@@ -173,3 +177,39 @@ def test_recsys_entry_points_need_a_card_unless_asked_for_cpu():
         recsys.bert4rec_serve_topk(b4r_params, seq, b4r, k=5)
     assert recsys.recsys_forward(params, batch, cfg, device="cpu").shape == (2,)
     assert recsys.bert4rec_serve_topk(b4r_params, seq, b4r, k=5, device="cpu")[1].shape == (2, 5)
+
+
+def test_serve_launcher_needs_a_card_unless_asked_for_cpu():
+    """``launch.serve``: no ``--device`` (``device=None``) means the card and
+    raises without one, before anything is built; ``--device cpu`` runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    import argparse
+
+    from repro_torch.launch import serve
+    args = dict(docs=60, queries=3, vocab=200, qps=20.0, k=5, memory_gb=2, partitions=0,
+                replicas=1, hedge=0.0, kernel=True)
+    for run, over in ((serve.run_single, {}), (serve.run_partitioned, dict(partitions=2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(argparse.Namespace(**dict(args, **over), device=None))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--docs", "60", "--queries", "3", "--vocab", "200"])
+    out = serve.run_single(argparse.Namespace(**args, device="cpu"))
+    assert out["queries"] == 3 and out["avg_hits"] > 0
+
+
+def test_moe_lm_entry_points_need_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import LM, lm_forward, lm_param_defs, make_cache
+    for name in ("olmoe-1b-7b", "deepseek-v2-236b"):
+        cfg = get_arch(name).reduced_config()
+        model = LM(init_params(lm_param_defs(cfg), torch.Generator().manual_seed(0), "cpu"), cfg)
+        toks = np.arange(6, dtype=np.int32).reshape(1, 6)
+        for call in (lambda: lm_forward(model, toks, cfg), lambda: make_cache(cfg, 1, 8)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        logits, aux = lm_forward(model, toks, cfg, device="cpu")
+        assert logits.shape == (1, 6, cfg.vocab) and float(aux) > 0

@@ -95,9 +95,30 @@ def bert4rec_outputs(mesh) -> dict:
     return {"vals": v.numpy(), "ids": i.numpy()}
 
 
+def ep_moe_inputs():
+    """``tests/test_distributed.py``'s expert-parallel case (MoE 8 experts
+    top-2 + 1 shared, x (8, 4, 16)): parameters from a seeded
+    ``torch.Generator``, x from numpy."""
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe import MoEConfig, moe_defs
+    cfg = MoEConfig(n_experts=8, top_k=2, d_model=16, d_ff=8, n_shared=1, capacity_factor=8.0)
+    params = init_params(moe_defs(cfg, torch.float32), torch.Generator().manual_seed(0), "cpu")
+    x = np.random.default_rng(1).standard_normal((8, 4, 16)).astype(np.float32)
+    return cfg, params, torch.from_numpy(x)
+
+
+def ep_moe_outputs(mesh) -> dict:
+    from repro_torch.models.moe_ep import ep_moe_ffn
+    from repro_torch.parallel import compat
+    cfg, params, x = ep_moe_inputs()
+    with compat.use_mesh(mesh):
+        y, aux = ep_moe_ffn(params, x, cfg)
+    return {"y": y.numpy(), "aux": np.float32(aux)}
+
+
 # case: (mesh shape, outputs)
 CASES = {"search": ((4, 2), search_outputs), "lookup": ((2, 4), lookup_outputs),
-         "bert4rec": ((1, 4), bert4rec_outputs)}
+         "bert4rec": ((1, 4), bert4rec_outputs), "ep_moe": ((4, 2), ep_moe_outputs)}
 
 
 def _rank(rank: int, case: str, world: int, workdir: str) -> None:
