@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: drive the single-node BM25 query
 path, the partitioned fleet, the structured tier, the mesh path, the serve
-launcher, the LM serving paths (dense, MoE, MLA) and recsys serving on one
-NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
+launcher, the LM serving paths (dense, MoE, MLA), recsys serving and the
+training path on one NVIDIA GPU and hold every hand-written kernel against
+its plain PyTorch twin.
 
     python3 chip_smoke.py                 # 500,000-doc partition (the default)
     python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
@@ -15,6 +16,7 @@ NVIDIA GPU and hold every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --mesh-only     # phases 1, 2 and 10 (no ok line)
     python3 chip_smoke.py --serve-only    # phases 1, 2 and 11 (no ok line)
     python3 chip_smoke.py --moe-only      # phases 1, 2, 12 and 13 (no ok line)
+    python3 chip_smoke.py --train-only    # phases 1, 2 and 14 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -171,7 +173,35 @@ Phases (each raises on failure; the script then exits non-zero):
      latent cache (per prefill 4 K5 "tc" and 4 K2, per step 4 K2 and no
      K5: the absorbed decode is plain), K5 at qk 192 / v 128 / 128 heads,
      K2 on (4,096 × 160, k 6), the latent cache's bytes beside a k/v cache
-     of the same heads. Each model is released before the next phase.
+     of the same heads. Each model is released before the next phase;
+ 14. training on the card, every state and batch made from seeds, the launch
+     counters set to 0 before the phase and all 0 after it (training runs the
+     plain paths: no hand kernel has a backward). (a) graphcast at
+     ``full_config(d_feat=602)`` (16 layers, d 512, 227 outputs, ~31M
+     parameters; the config's mean aggregator here, as 16 unnormalised
+     sums over the sample's hubs overflow f32) at ``minibatch_lg``:
+     ``synth_graph(232_965, avg_degree=25,
+     d_feat=602)`` (reddit's nodes and features, its degree cut from ~492 to
+     25 for host time), ``NeighborSampler`` samples of 1,024 seeds at fanout
+     15-10 (169,984 × 168,960 padded), seeded targets; 8 steps through
+     ``run_with_restarts`` with a checkpoint every 4 steps to a filesystem
+     ObjectStore and a failure injected at step 6: one restart, one lost
+     step, the re-run step's loss equal to its first bit for bit, the
+     restored step-4 state equal to the saved one bit for bit, and two steps
+     from the same init again giving the same bits; then 2 steps each of
+     full_graph_sm (2,708 nodes, 10,556 edges, 1,433 features) and molecule
+     (128 graphs); (b) h2o-danube-1.8b at ``full_config()`` in bf16, remat
+     nothing_saveable, 2 × 4,096 tokens (train_4k's sequence; its batch cut
+     from 256), 6 steps of ``make_train_step(lm_loss)`` on one repeated
+     batch: the loss falls, the first step's loss repeats bit for bit;
+     (c) ``python -m repro_torch.launch.train --arch stablelm-3b --preset
+     100m --steps 60 --batch 16 --seq 256 --ckpt-every 20 --fail-at 45``
+     through its ``main``: ``restarts=1``, the last 10 steps' mean loss
+     below the first 10's; (d) fm and dcn-v2 at ``full_config()`` on 65,536
+     rows (train_batch), 3 steps each, and bert4rec's sampled loss at 4,096
+     sequences. Step walls, peak memory and losses are printed, and a
+     ``{"training": ...}`` JSON line. The models are released before the
+     kernels line.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -196,7 +226,7 @@ chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
 ``--mesh-only`` runs phases 1-2 and then phase 10.
 
 ``--serve-only`` runs phases 1-2 and then phase 11; ``--moe-only`` phases
-1-2 and then phases 12 and 13.
+1-2 and then phases 12 and 13; ``--train-only`` phases 1-2 and then phase 14.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -2900,6 +2930,381 @@ def moe_entry(r) -> dict:
             "k2": case_entry(r["k2"])}
 
 
+# -- 14. training on the card ------------------------------------------------------------
+
+# graphcast at minibatch_lg: reddit's node count and feature width, the degree cut
+# from ~492 to 25 for host time; 1,024 seeds, fanout 15-10 (configs/cells.py). The
+# aggregator is the config's "mean" option, not its "sum": synth_graph's zipf sources
+# make hubs whose in-degree in a sample reaches thousands (3,630 at 64 seeds), and
+# 16 unnormalised residual sums over them overflow f32 by layer 13 (NaN at step 0 in
+# either package). full_graph_sm and molecule keep "sum".
+GNN_TRAIN = dict(nodes=232_965, degree=25, d_feat=602, seeds=1024, fanout=(15, 10), steps=8,
+                 every=4, fail_at=6, repeat=2, aggregator="mean")
+GNN_SMALL = dict(full_graph_sm=2, molecule=2)          # steps of the two other regimes
+LM_TRAIN = dict(arch="h2o-danube-1.8b", batch=2, seq=4096, steps=6, lr=3e-4)
+LAUNCHER_ARGV = ["--arch", "stablelm-3b", "--preset", "100m", "--steps", "60", "--batch", "16",
+                 "--seq", "256", "--ckpt-every", "20", "--fail-at", "45"]
+RECSYS_TRAIN = dict(archs=("fm", "dcn-v2"), batch=65_536, steps=3,
+                    bert4rec_batch=4096, bert4rec_steps=3)
+
+
+def tree_bits_equal(a, b) -> bool:
+    """Two trees of tensors (the port's train states), leaf for leaf, bit
+    for bit."""
+    from repro_torch.checkpoint.manager import tree_leaves_with_path
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    return len(la) == len(lb) and all(
+        pa == pb and same_bits(x.detach().cpu(), y.detach().cpu())
+        for (pa, x), (pb, y) in zip(la, lb))
+
+
+def host_copy(state):
+    from repro_torch.checkpoint.manager import tree_leaves_with_path, tree_unflatten
+    return tree_unflatten(state, [t.detach().to("cpu", copy=True)
+                                  for _, t in tree_leaves_with_path(state)])
+
+
+def timed_steps(step_fn, state, batches, torch, record=None):
+    """``state = step_fn(state, batch)`` over ``batches``: (state, losses,
+    walls in ms) — each wall from before the step to its loss on the host."""
+    losses, walls = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        require(math.isfinite(losses[-1]), f"a non-finite loss {losses[-1]} at step {i}")
+        if record is not None:
+            record(i, state)
+    return state, losses, walls
+
+
+def gnn_minibatch(sampler, n_nodes, d_out, step, torch, device):
+    """Step ``step``'s sampled subgraph on the card: seeds from
+    ``default_rng(step)``, seeded targets of width ``d_out``."""
+    rng = np.random.default_rng((7, step))
+    seeds = rng.choice(n_nodes, GNN_TRAIN["seeds"], replace=False)
+    sub = sampler.sample(seeds, step=step)
+    sub["target"] = rng.normal(size=(sub["feat"].shape[0], d_out)).astype(np.float32)
+    return {k: torch.as_tensor(sub[k]).to(device) for k in ("feat", "src", "dst", "node_mask",
+                                                              "target")}, sub["n_real_nodes"]
+
+
+def graphcast_train(torch, device, tmp) -> dict:
+    """Phase 14a: graphcast at full width on a minibatch_lg sample stream
+    through ``run_with_restarts`` (a checkpoint every 4 steps to a
+    filesystem ObjectStore, one injected failure), then the restore and two
+    steps from the same init, each held to their first readings bit for bit."""
+    from repro_torch.checkpoint.manager import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.core.object_store import FilesystemBackend, ObjectStore
+    from repro_torch.data.graphs import NeighborSampler, padded_sizes, synth_graph
+    from repro_torch.ft.faults import FailureInjector, run_with_restarts
+    from repro_torch.models.common import init_params
+    from repro_torch.models.gnn import gnn_loss, gnn_param_defs
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    run = GNN_TRAIN
+    t0 = time.perf_counter()
+    cfg = get_arch("graphcast").full_config(d_feat=run["d_feat"], aggregator=run["aggregator"])
+    g = synth_graph(run["nodes"], avg_degree=run["degree"], d_feat=run["d_feat"], seed=0)
+    sampler = NeighborSampler(g, fanout=run["fanout"], seed=0)
+    t1 = time.perf_counter()
+    batches, real, sample_s = {}, {}, []
+    for step in range(run["steps"]):
+        s0 = time.perf_counter()
+        batches[step], real[step] = gnn_minibatch(sampler, run["nodes"], cfg.d_out, step, torch,
+                                                  device)
+        sample_s.append(time.perf_counter() - s0)
+    N, E = padded_sizes(run["seeds"], run["fanout"])
+    require(tuple(batches[0]["feat"].shape) == (N, run["d_feat"])
+            and tuple(batches[0]["src"].shape) == (E,), "the sample's padded shapes")
+    print(f"[14a] graphcast full_config(d_feat={run['d_feat']}): {cfg.n_layers} layers, d "
+          f"{cfg.d_hidden}, {cfg.d_out} outputs, {cfg.aggregator}, remat "
+          f"{cfg.remat_policy}, {cfg.param_count()} parameters; synth_graph({run['nodes']}, "
+          f"avg_degree={run['degree']}) {t1 - t0:.1f} s; {run['steps']} samples of "
+          f"{run['seeds']} seeds, fanout {run['fanout']} (padded {N} nodes, {E} edges; real "
+          f"nodes {min(real.values())}-{max(real.values())}) in {sum(sample_s):.1f} s",
+          flush=True)
+    step_fn = make_train_step(lambda p, b: gnn_loss(p, b, cfg),
+                              OptConfig(lr=1e-3, warmup_steps=2, total_steps=run["steps"]))
+
+    def init():
+        return init_train_state(init_params(gnn_param_defs(cfg),
+                                            torch.Generator(device=device).manual_seed(0),
+                                            device))
+
+    # why not the config's sum: the sample's hub in-degree, and the sum's loss at init
+    b0 = batches[0]
+    indeg = int(torch.bincount(b0["dst"][b0["dst"] < N].long()).max())
+    with torch.no_grad():
+        sum_cfg = dataclasses.replace(cfg, aggregator="sum")
+        sum_loss = float(gnn_loss(init()["params"], b0, sum_cfg)[0])
+    print(f"[14a] step 0's sample: max in-degree {indeg}; with the sum aggregator the loss at "
+          f"init is {sum_loss} ({cfg.n_layers} unnormalised sums), so this run takes "
+          f"{cfg.aggregator!r}",
+          flush=True)
+
+    ckpt = CheckpointManager(ObjectStore(FilesystemBackend(str(tmp / "graphcast"))), "graphcast",
+                             CheckpointConfig(every_steps=run["every"], keep=3))
+    history, walls, snaps = [], [], {}
+
+    def one_step(state, step):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[step])
+        loss = float(m["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        require(math.isfinite(loss), f"graphcast: loss {loss} at step {step}")
+        history.append((step, loss))
+        if step in (1, run["every"]) and step not in snaps:
+            snaps[step] = host_copy(state)
+        return state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    state, stats = run_with_restarts(one_step, init(), run["steps"], ckpt,
+                                     injector=FailureInjector(fail_at=(run["fail_at"],)))
+    wall = time.perf_counter() - t2
+    peak = torch.cuda.max_memory_allocated()
+    lost = run["fail_at"] - (run["fail_at"] // run["every"]) * run["every"] - 1
+    require(stats.restarts == 1 and stats.steps_lost == lost
+            and stats.steps_run == run["steps"] + lost,
+            f"graphcast restarts: {stats}, expected 1 restart and {lost} lost step(s)")
+    # the steps run again after the restore give their first losses, bit for bit
+    first = {}
+    for step, loss in history:
+        if step in first:
+            require(loss == first[step], f"graphcast step {step} after the restore: loss "
+                                         f"{loss!r}, first {first[step]!r}")
+        first[step] = loss
+    restored, at = ckpt.restore(state, step=run["every"])
+    require(at == run["every"] and tree_bits_equal(restored, snaps[run["every"]]),
+            f"the state restored at step {run['every']} is not the saved state bit for bit")
+    del restored
+    print(f"[14a] {run['steps']} steps, a failure injected at step {run['fail_at']}: "
+          f"restarts={stats.restarts} steps_lost={stats.steps_lost} steps_run={stats.steps_run} "
+          f"in {wall:.1f} s; checkpoints {ckpt.saves} ({ckpt.save_seconds:.1f} s in the writer "
+          f"thread); step wall p50 {np.percentile(walls, 50):.1f} ms (p max "
+          f"{max(walls):.1f}); peak memory {peak} B; losses "
+          f"{[round(loss, 5) for _, loss in history]}", flush=True)
+    print(f"[14a] restore at step {run['every']} == the saved state bit for bit; the "
+          f"{lost} step(s) re-run after it give their first losses bit for bit", flush=True)
+    # the first two steps again from the same init: the same bits
+    again, _, _ = timed_steps(step_fn, init(), [batches[i] for i in range(run["repeat"])], torch)
+    require(tree_bits_equal(again, snaps[run["repeat"] - 1]),
+            f"graphcast: {run['repeat']} steps from one init differ between two runs")
+    print(f"[14a] steps 0-{run['repeat'] - 1} run again from the same init: the same bits",
+          flush=True)
+    out = dict(params=cfg.param_count(), nodes=N, edges=E, max_in_degree=indeg,
+               sum_loss_at_init=sum_loss, steps_run=stats.steps_run,
+               restarts=stats.restarts, steps_lost=stats.steps_lost,
+               wall_p50_ms=float(np.percentile(walls, 50)), peak=peak,
+               losses=[loss for _, loss in history], sample_s=sum(sample_s),
+               restore_bitwise=True, repeat_bitwise=True)
+    del state, again, batches, snaps, g, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def graphcast_small(torch, device) -> dict:
+    """Phase 14a, the two other regimes: full_graph_sm (cora's 2,708 nodes,
+    10,556 edges, 1,433 features) and molecule (128 graphs of 30 nodes, 64
+    edges), 2 steps each from a seeded init, on seeded data."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.cells import GNN_SHAPES
+    from repro_torch.data.graphs import molecule_batch
+    from repro_torch.models.common import init_params
+    from repro_torch.models.gnn import gnn_loss, gnn_param_defs
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    out = {}
+    for name, steps in GNN_SMALL.items():
+        sh = GNN_SHAPES[name]
+        cfg = get_arch("graphcast").full_config(d_feat=sh["d_feat"])
+        N, E, F = sh["n_nodes"], sh["n_edges"], sh["d_feat"]
+        if sh.get("batch"):
+            b = molecule_batch(sh["batch"], N, E, F, cfg.d_out, seed=3)
+        else:
+            rng = np.random.default_rng(3)
+            b = {"feat": rng.normal(size=(N, F)).astype(np.float32),
+                 "src": rng.integers(0, N, E).astype(np.int32),
+                 "dst": rng.integers(0, N, E).astype(np.int32),
+                 "target": rng.normal(size=(N, cfg.d_out)).astype(np.float32),
+                 "node_mask": np.ones(N, np.float32)}
+        batch = {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+        state = init_train_state(init_params(gnn_param_defs(cfg),
+                                             torch.Generator(device=device).manual_seed(1),
+                                             device))
+        step_fn = make_train_step(lambda p, bb: gnn_loss(p, bb, cfg),
+                                  OptConfig(lr=1e-3, warmup_steps=1, total_steps=steps))
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, walls = timed_steps(step_fn, state, [batch] * steps, torch)
+        out[name] = dict(losses=losses, walls_ms=walls, peak=torch.cuda.max_memory_allocated())
+        print(f"[14a] graphcast {name} ({sh.get('batch', 1)} graph(s) of {N} nodes, {E} edges, "
+              f"{F} features, {cfg.aggregator}): {steps} steps, losses {losses}, walls "
+              f"{[round(w, 1) for w in walls]} ms, peak memory {out[name]['peak']} B", flush=True)
+        del state, batch
+    return out
+
+
+def lm_train(torch, device) -> dict:
+    """Phase 14b: h2o-danube-1.8b at full width in bf16, remat
+    nothing_saveable, 2 × 4,096 tokens, ``make_train_step(lm_loss)`` on one
+    repeated batch: the loss falls, and the first step's loss is the same
+    bits when the first step is run again from the same init."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMDataConfig, LMTokenStream
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.transformer import lm_loss, lm_param_defs
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    run = LM_TRAIN
+    cfg = get_arch(run["arch"]).full_config()
+    require(cfg.remat and cfg.remat_policy == "nothing_saveable" and cfg.dtype == torch.bfloat16,
+            f"{cfg.name}: remat {cfg.remat} {cfg.remat_policy}, {cfg.dtype}")
+    defs = lm_param_defs(cfg)
+    batch = LMTokenStream(LMDataConfig(vocab=cfg.vocab, batch=run["batch"], seq=run["seq"],
+                                       seed=0)).batch(0)
+    batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    step_fn = make_train_step(lambda p, b: lm_loss(p, b, cfg),
+                              OptConfig(lr=run["lr"], warmup_steps=1, total_steps=run["steps"]))
+
+    def init():
+        return init_train_state(init_params(defs, torch.Generator(device=device).manual_seed(0),
+                                            device))
+
+    t0 = time.perf_counter()
+    state = init()
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    print(f"[14b] {cfg.name} full_config(): {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.param_count()} parameters in {cfg.dtype}, f32 moments: train state "
+          f"{state_bytes} B, made from seed 0 in {time.perf_counter() - t0:.1f} s; batch "
+          f"{run['batch']} x {run['seq']} tokens (train_4k's sequence, its batch cut from 256)",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, walls = timed_steps(step_fn, state, [batch] * run["steps"], torch)
+    peak = torch.cuda.max_memory_allocated()
+    require(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, again, _ = timed_steps(step_fn, init(), [batch], torch)
+    require(again[0] == losses[0], f"{cfg.name}: first-step loss {again[0]!r} on a second run, "
+                                   f"{losses[0]!r} on the first")
+    print(f"[14b] {run['steps']} steps: losses {losses}; step wall p50 "
+          f"{np.percentile(walls[1:], 50):.1f} ms (first {walls[0]:.1f} ms); peak memory {peak} B; "
+          f"the first step's loss on a second run: the same bits", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, wall_p50_ms=float(np.percentile(walls[1:], 50)),
+                first_ms=walls[0], peak=peak, state_bytes=state_bytes, repeat_bitwise=True)
+
+
+def launcher_drill(torch, tmp) -> dict:
+    """Phase 14c: ``python -m repro_torch.launch.train`` with LAUNCHER_ARGV,
+    run through its ``main`` in this process (so the launch counters see
+    it): one restart, and the last 10 steps' mean loss below the first 10's."""
+    import io
+    from repro_torch.launch import train
+    argv = LAUNCHER_ARGV + ["--ckpt-dir", str(tmp / "launcher"),
+                            "--metrics-out", str(tmp / "launcher.json")]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"[14c] {line}", flush=True)
+    m = json.loads((tmp / "launcher.json").read_text())
+    first = float(np.mean([h["loss"] for h in m["history"][:10]]))
+    last = float(np.mean([h["loss"] for h in m["history"][-10:]]))
+    require(rc == 0 and m["restarts"] == 1, f"the launcher: rc {rc}, restarts {m['restarts']}")
+    require(last < first, f"the launcher: last10 {last} not below first10 {first}")
+    walls = [h["sec"] * 1e3 for h in m["history"]]
+    print(f"[14c] python -m repro_torch.launch.train {' '.join(LAUNCHER_ARGV)}: restarts="
+          f"{m['restarts']} steps_lost={m['steps_lost']}, first10 {first:.4f} > last10 "
+          f"{last:.4f}, step wall p50 {np.percentile(walls, 50):.1f} ms, {wall:.1f} s in all",
+          flush=True)
+    return dict(restarts=m["restarts"], steps_lost=m["steps_lost"], first10=first, last10=last,
+                wall_p50_ms=float(np.percentile(walls, 50)), wall_s=wall)
+
+
+def recsys_train(torch, device) -> dict:
+    """Phase 14d: fm and dcn-v2 at ``full_config()``, ``train_batch``'s
+    65,536 rows, 3 steps each; bert4rec's sampled loss (1,024 negatives, 32
+    masked positions) at the batch RECSYS_TRAIN names."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys_data import CTRStream, SequenceStream
+    from repro_torch.models.common import init_params
+    from repro_torch.models.recsys import recsys_loss, recsys_param_defs
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    run = RECSYS_TRAIN
+    out = {}
+    for name in run["archs"] + ("bert4rec",):
+        cfg = get_arch(name).full_config()
+        if name == "bert4rec":
+            B, steps = run["bert4rec_batch"], run["bert4rec_steps"]
+            stream = SequenceStream(n_items=cfg.n_items, seq_len=cfg.seq_len, batch=B, seed=0)
+        else:
+            B, steps = run["batch"], run["steps"]
+            stream = CTRStream(n_sparse=cfg.n_sparse, rows_per_field=cfg.rows_per_field,
+                               batch=B, n_dense=cfg.n_dense, n_items=cfg.n_items, seed=0)
+        batches = [{k: torch.as_tensor(v).to(device) for k, v in stream.batch_at(s).items()}
+                   for s in range(steps)]
+        t0 = time.perf_counter()
+        state = init_train_state(init_params(recsys_param_defs(cfg),
+                                             torch.Generator(device=device).manual_seed(0),
+                                             device))
+        step_fn = make_train_step(lambda p, b, cfg=cfg: recsys_loss(p, b, cfg),
+                                  OptConfig(lr=1e-3, warmup_steps=1, total_steps=steps))
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, walls = timed_steps(step_fn, state, batches, torch)
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = dict(batch=B, losses=losses, walls_ms=walls, peak=peak,
+                         params=cfg.param_count())
+        print(f"[14d] {name} full_config() ({cfg.param_count()} parameters, state made in "
+              f"{t_init:.1f} s), batch {B}: {steps} steps, losses {losses}, walls "
+              f"{[round(w, 1) for w in walls]} ms, peak memory {peak} B", flush=True)
+        del state, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(kern, torch, device="cuda") -> tuple[dict, dict]:
+    """Phase 14: the training path on the card (see the module docstring).
+    The launch counters are set to 0 before it and must read 0 after it:
+    training runs no hand kernel."""
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset(kern)
+    out = {"memory_allocated_before": torch.cuda.memory_allocated()}
+    print(f"[14] memory_allocated at the start {out['memory_allocated_before']} B", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        tmp = Path(tmp)
+        out["graphcast"] = graphcast_train(torch, device, tmp)
+        out["graphcast_small"] = graphcast_small(torch, device)
+        out["lm"] = lm_train(torch, device)
+        out["launcher"] = launcher_drill(torch, tmp)
+        out["recsys"] = recsys_train(torch, device)
+    launches = counted(kern, "phase 14 (training)", {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["memory_allocated_after"] = torch.cuda.memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[14] training launched no hand kernel ({launches}); memory_allocated after release "
+          f"{out['memory_allocated_after']} B; phase 14 took {out['seconds']:.1f} s", flush=True)
+    return out, {"phase 14 (training)": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=500_000,
@@ -2931,6 +3336,9 @@ def main() -> int:
     ap.add_argument("--moe-only", action="store_true",
                     help="phases 1, 2, 12 and 13 only (a shake-out of the MoE and MLA LMs; "
                          "prints no ok line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 1, 2 and 14 only (a shake-out of the training path; prints no "
+                         "ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3040,6 +3448,12 @@ def main() -> int:
         print(smi, flush=True)
         print("chip_smoke: --serve-only, a partial run", flush=True)
         return 0
+    if args.train_only:
+        training, _ = train_phase(kern, torch)
+        print(json.dumps({"training": training}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --train-only, a partial run", flush=True)
+        return 0
     if args.moe_only:
         moe = {name: moe_phase(kern, ref, torch, name) for name in MOE_RUNS}
         print(json.dumps({"moe_only": {name: moe_entry(r) for name, r in moe.items()}}),
@@ -3136,6 +3550,12 @@ def main() -> int:
         launches.update(moe[name]["launches"])
         print(f"[{MOE_RUNS[name]['tag']}] phases 1-{MOE_RUNS[name]['tag']} took "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 14. training: graphcast, h2o-danube-1.8b, the launcher, recsys (no hand kernel)
+    training, train_launches = train_phase(kern, torch)
+    launches.update(train_launches)
+    print(json.dumps({"training": training}), flush=True)
+    print(f"[14] phases 1-14 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     Q = len(queries)
     meta = {

@@ -1,8 +1,8 @@
-"""Architecture registry of the port: the LMs (dense, MoE and MLA + MoE)
-and the recsys models whose serving paths are ported, and the paper's own
-search geometry, under the reference's ids. Each module exposes
-``FAMILY``, ``full_config()`` and ``reduced_config()``; ``rules``/``cells``
-wait for ROADMAP Queue 1 item 10."""
+"""Architecture registry of the port: the LMs (dense, MoE and MLA + MoE),
+the GNN, the recsys models and the paper's own search geometry, under the
+reference's ids. Each module exposes ``FAMILY``, ``full_config()``,
+``reduced_config()`` and ``rules()``; ``cells`` raises until the cell
+builders land (ROADMAP Queue 1 item 10)."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ ARCH_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    # GNN
+    "graphcast": "repro_torch.configs.graphcast",
     # recsys
     "fm": "repro_torch.configs.fm",
     "bst": "repro_torch.configs.bst",
@@ -32,5 +34,5 @@ def get_arch(name: str):
 
 
 def family(name: str) -> list[str]:
-    """The ids of one family (``"lm"``, ``"recsys"``), sorted."""
+    """The ids of one family (``"lm"``, ``"gnn"``, ``"recsys"``), sorted."""
     return sorted(a for a in ARCH_MODULES if get_arch(a).FAMILY == name)

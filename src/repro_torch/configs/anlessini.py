@@ -7,12 +7,14 @@ chips; ~495M postings → ~3.93M blocks of 128 → 15,360 per partition;
 vocab 2¹⁹. Two serve shapes: interactive (Q=1, the paper's <300 ms
 operating point) and batched scatter-gather (Q=64).
 
-``rules`` and ``cells`` need ``configs/cells.py`` and
-``parallel/sharding.py``, which wait for ROADMAP Queue 1 item 10.
+``rules`` returns the reference's rules; ``cells`` raises until the cell
+builders land (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+from repro_torch.configs.cells import CELLS_PENDING
+from repro_torch.parallel.sharding import ShardRules
 from repro_torch.search.distributed import DistSearchConfig
 
 ARCH_ID = "anlessini"
@@ -26,10 +28,6 @@ SHAPES_REDUCED = {
     "serve_q1": dict(Q=1),
     "serve_q64": dict(Q=4),
 }
-
-_CELLS = "the dry-run cells (configs/cells.py, parallel/sharding.py) wait for ROADMAP " \
-         "Queue 1 item 10"
-
 
 def full_config(n_parts: int) -> DistSearchConfig:
     return DistSearchConfig(
@@ -46,8 +44,8 @@ def reduced_config(n_parts: int = 1) -> DistSearchConfig:
 
 
 def rules(**kw):
-    raise NotImplementedError(_CELLS)
+    return ShardRules(mapping={}, batch=("data",))
 
 
 def cells(rules_, *, reduced: bool = False):
-    raise NotImplementedError(_CELLS)
+    raise NotImplementedError(CELLS_PENDING)

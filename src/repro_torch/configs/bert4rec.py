@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.cells import recsys_cells
 from repro_torch.models.recsys import RecsysConfig
+from repro_torch.parallel.sharding import recsys_rules
 
 ARCH_ID = "bert4rec"
 FAMILY = "recsys"
@@ -26,3 +28,11 @@ def reduced_config() -> RecsysConfig:
     return RecsysConfig(name=ARCH_ID + "-reduced", kind="bert4rec",
                         embed_dim=8, seq_len=12, n_blocks=1, n_heads=2,
                         n_items=254, dtype=torch.float32)
+
+
+def rules(**kw):
+    return recsys_rules()
+
+
+def cells(rules_, *, reduced: bool = False):
+    return recsys_cells(ARCH_ID, None, rules_, reduced=reduced)

@@ -5,7 +5,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.cells import recsys_cells
 from repro_torch.models.recsys import RecsysConfig
+from repro_torch.parallel.sharding import recsys_rules
 
 ARCH_ID = "dcn-v2"
 FAMILY = "recsys"
@@ -25,3 +27,11 @@ def reduced_config() -> RecsysConfig:
                         n_dense=4, embed_dim=8, rows_per_field=128,
                         mlp_dims=(32, 16), n_cross_layers=2,
                         dtype=torch.float32)
+
+
+def rules(**kw):
+    return recsys_rules()
+
+
+def cells(rules_, *, reduced: bool = False):
+    return recsys_cells(ARCH_ID, None, rules_, reduced=reduced)

@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.cells import recsys_cells
 from repro_torch.models.recsys import RecsysConfig
+from repro_torch.parallel.sharding import recsys_rules
 
 ARCH_ID = "fm"
 FAMILY = "recsys"
@@ -22,3 +24,11 @@ def full_config(**over) -> RecsysConfig:
 def reduced_config() -> RecsysConfig:
     return RecsysConfig(name=ARCH_ID + "-reduced", kind="fm", n_sparse=6,
                         embed_dim=8, rows_per_field=128, dtype=torch.float32)
+
+
+def rules(**kw):
+    return recsys_rules()
+
+
+def cells(rules_, *, reduced: bool = False):
+    return recsys_cells(ARCH_ID, None, rules_, reduced=reduced)

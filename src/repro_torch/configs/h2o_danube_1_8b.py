@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.cells import lm_cells
 from repro_torch.models.transformer import LMConfig
+from repro_torch.parallel.sharding import lm_rules
 
 ARCH_ID = "h2o-danube-1.8b"
 FAMILY = "lm"
@@ -30,3 +32,11 @@ def reduced_config() -> LMConfig:
         n_kv_heads=2, d_ff=128, vocab=512, window=16,
         dtype=torch.float32,
     )
+
+
+def rules(**kw):
+    return lm_rules(fsdp=False)
+
+
+def cells(rules_, *, reduced: bool = False):
+    return lm_cells(ARCH_ID, None, rules_, reduced=reduced)

@@ -4,23 +4,21 @@ d_ff(expert)=1024, vocab 50304. ~6.9B total / ~1.3B active params.
 Shipped dispatch: explicit expert parallelism (``moe_impl="ep"``), which
 runs on the ambient mesh (``repro_torch.parallel.compat.use_mesh``).
 
-``rules`` and ``cells`` need ``configs/cells.py`` and
-``parallel/sharding.py``, which wait for ROADMAP Queue 1 item 10.
+``rules`` returns the reference's rules; ``cells`` raises until the cell
+builders land (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.cells import lm_cells
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
+from repro_torch.parallel.sharding import lm_rules
 
 ARCH_ID = "olmoe-1b-7b"
 FAMILY = "lm"
-
-_CELLS = "the dry-run cells (configs/cells.py, parallel/sharding.py) wait for ROADMAP " \
-         "Queue 1 item 10"
-
 
 def full_config(**over) -> LMConfig:
     kw = dict(
@@ -46,8 +44,8 @@ def reduced_config() -> LMConfig:
 
 
 def rules(**kw):
-    raise NotImplementedError(_CELLS)
+    return lm_rules(fsdp=True)
 
 
 def cells(rules_, *, reduced: bool = False):
-    raise NotImplementedError(_CELLS)
+    return lm_cells(ARCH_ID, None, rules_, reduced=reduced)

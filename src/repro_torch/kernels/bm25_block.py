@@ -36,6 +36,7 @@ def bm25_block_scores(tf: torch.Tensor, dl: torch.Tensor, idf: torch.Tensor,
     (..., T, M, B) f32."""
     if not backend.use_kernel(tf, dl, idf):
         return ref.bm25_block_scores_ref(tf, dl, idf, k1, b, avgdl)
+    backend.refuse_grad("bm25_block_scores", dl, idf)
     if tf.dtype != torch.uint8 or dl.dtype != torch.float32 or idf.dtype != torch.float32:
         raise ValueError(f"bm25_block_scores takes u8/f32/f32, got {tf.dtype}/{dl.dtype}/{idf.dtype}")
     if tf.shape != dl.shape:
@@ -66,6 +67,7 @@ def bm25_block_impacts(tf: torch.Tensor, docs: torch.Tensor, valid: torch.Tensor
     and tf ≠ 0, else +0.0 — ``ref.bm25_block_impacts_ref``'s bits."""
     if not backend.use_kernel(tf, docs, valid, doc_len, idf):
         return ref.bm25_block_impacts_ref(tf, docs, valid, doc_len, idf, k1, b, avgdl, n_docs)
+    backend.refuse_grad("bm25_block_impacts", doc_len, idf)
     want = (torch.uint8, torch.int32, torch.bool, torch.float32, torch.float32)
     got = tuple(x.dtype for x in (tf, docs, valid, doc_len, idf))
     if got != want:

@@ -109,6 +109,7 @@ def bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
     tensors = (tf, dl, docs, idf_q, ub, valid)
     if not backend.use_kernel(*tensors):
         return ref.bm25_pruned_topk_ref(*tensors, k1, b, avgdl, k=k, n_docs=n_docs)
+    backend.refuse_grad("bm25_pruned_topk", *tensors)
     single = tf.dim() == 3
     if single:
         tensors = tuple(x.unsqueeze(0) for x in tensors)

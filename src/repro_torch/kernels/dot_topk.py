@@ -42,6 +42,7 @@ def dot_topk_batch(queries: torch.Tensor, cands: torch.Tensor, k: int):
         raise ValueError(f"k={k} exceeds the {MAX_K} rows of one chunk")
     if not backend.use_kernel(queries, cands):
         return ref.dot_topk_batch_ref(queries, cands, k)
+    backend.refuse_grad("dot_topk_batch", queries, cands)
     if queries.dtype != torch.float32 or cands.dtype != torch.float32:
         raise ValueError(f"dot_topk_batch takes f32/f32, got {queries.dtype}/{cands.dtype}")
     if queries.dim() != 2 or cands.dim() != 2 or queries.shape[1] != cands.shape[1]:

@@ -57,6 +57,7 @@ def topk(scores: torch.Tensor, k: int, *, chunk: int = DEFAULT_CHUNK):
     each row is contiguous."""
     if not backend.use_kernel(scores):
         return ref.topk_ref(scores, k)
+    backend.refuse_grad("topk", scores)
     single = scores.dim() == 1
     s = scores.unsqueeze(0) if single else scores
     if s.dim() != 2 or s.dtype != torch.float32:
@@ -80,6 +81,7 @@ def merge(vals: torch.Tensor, ids: torch.Tensor, k: int, n_live: int, *,
     the lowest id, -inf slots as (-inf, ``n_live``). K2's kernel over the
     survivors, again until exactly k columns are left (fewer than k are
     padded with -inf); K4 merges through it too."""
+    backend.refuse_grad("topk", vals)
     chunk = max(chunk, 2 * k)
     while vals.shape[1] != k:
         vals, ids = _select(vals, ids, vals.shape[1], chunk, k, n_live)

@@ -4,8 +4,9 @@ port of ``repro/models/common.py``.
 A model declares its parameters once as a tree (nested ``dict``) of
 :class:`ParamDef` (shape, logical axes, initializer, dtype). From it come
 ``count_params`` (no allocation) and ``init_params`` (tensors from an
-explicit ``torch.Generator``). The logical axes are kept for the sharding
-rules of a later slice; nothing reads them yet.
+explicit ``torch.Generator``), ``abstract_params`` (tensors on the
+``meta`` device: shapes and dtypes, no storage) and ``param_axes``, which
+:mod:`repro_torch.parallel.sharding` maps onto a mesh's axes.
 
 ``jax.random`` and ``torch.Generator`` give different numbers from one
 seed, so parity tests carry the reference's own initial values across
@@ -49,6 +50,33 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {key: tree_map(fn, tree[key]) for key in sorted(tree)}
     return fn(tree)
+
+
+def is_param_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def _tree_map_defs(fn, defs):
+    return tree_map(fn, defs)
+
+
+def abstract_params(defs) -> Any:
+    """Each ParamDef as an empty tensor of its shape and dtype on the
+    ``meta`` device — the reference's ShapeDtypeStructs; nothing is
+    allocated."""
+    return _tree_map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def param_axes(defs) -> Any:
+    return _tree_map_defs(lambda d: d.axes, defs)
+
+
+def unstack_layers(tree: dict, n: int) -> list:
+    """A tree stacked on a leading ``layers`` axis → n trees of views, one a
+    layer (the reference's ``lax.scan`` over that axis). One ``unbind`` a
+    leaf, so the backward stacks each leaf's gradients once."""
+    cols = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda c, i=i: c[i], cols) for i in range(n)]
 
 
 def count_params(defs) -> int:
@@ -152,3 +180,45 @@ def mlp_stack(p, x):
         if i < n - 1:
             x = F.relu(x)
     return x
+
+
+# -- rematerialisation -------------------------------------------------------------
+
+_DOTS = ("mm", "addmm", "bmm", "baddbmm")
+_SAVED_DOTS = {
+    "dots_saveable": _DOTS,
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+}
+REMAT_POLICIES = ("nothing_saveable", *_SAVED_DOTS)
+
+
+def _save_ops(names: tuple[str, ...]):
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+    ops = {getattr(torch.ops.aten, name).default for name in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def remat(body, policy: "str | None"):
+    """``body`` recomputed in the backward pass, as ``jax.checkpoint`` with
+    the reference's policies, through ``torch.utils.checkpoint``
+    (non-reentrant): ``"nothing_saveable"`` keeps only the inputs;
+    ``"dots_saveable"`` also every matmul's output (``mm``, ``addmm``,
+    ``bmm``, ``baddbmm``); ``"dots_with_no_batch_dims_saveable"`` those
+    without batch dimensions (``mm``, ``addmm``). ``None`` or ``"none"``:
+    ``body`` itself. Recomputing runs the same operations on the same
+    inputs, so the gradients are those without remat, bit for bit."""
+    if policy in (None, "none"):
+        return body
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; known: {REMAT_POLICIES + ('none',)}")
+    from torch.utils.checkpoint import checkpoint
+    kw = {} if policy == "nothing_saveable" else {"context_fn": _save_ops(_SAVED_DOTS[policy])}
+
+    def run(*args):
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run

@@ -87,14 +87,20 @@ def expert_capacity(T: int, cfg: MoEConfig) -> int:
 
 def _route(xt, router, cfg: MoEConfig):
     """xt (L, T, d), router (d, E) or (L, d, E) → probs (L, T, E), the
-    renormalised top-k gates (L, T, K) and experts (L, T, K) int64."""
+    renormalised top-k gates (L, T, K) and experts (L, T, K) int64.
+
+    K2 ranks a detached f32 copy of the probabilities, as only its ids are
+    needed; the gates are gathered from ``probs`` at those ids, so they
+    carry the router's gradient (K2 has no backward). In f32 the gathered
+    values are K2's own, bit for bit."""
     rd = cfg.router_dtype
     probs = torch.softmax(dense(xt.to(rd), router.to(rd)), dim=-1)
     L, T, E = probs.shape
-    vals, ids = topk(probs.reshape(L * T, E).float(), cfg.top_k)
-    gate = vals.reshape(L, T, -1).to(probs.dtype)
+    _, ids = topk(probs.detach().reshape(L * T, E).float(), cfg.top_k)
+    ids = ids.reshape(L, T, -1).long()
+    gate = probs.gather(-1, ids)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    return probs, gate, ids.reshape(L, T, -1).long()
+    return probs, gate, ids
 
 
 def _balance(probs, expert):

@@ -33,10 +33,16 @@ Where the kernels sit:
   mesh's ``"model"`` axis (:mod:`repro_torch.parallel.compat`) and merges
   the k·M survivors, each step on K2.
 
-Every entry point takes ``device=None`` (the card; it raises without one)
-or ``device="cpu"``; the parameters must already live there. The losses
-(``ctr_loss``, ``masked_item_loss*``, ``recsys_loss``) wait for the training
-item (ROADMAP Queue 1 item 8).
+Every serving entry point takes ``device=None`` (the card; it raises
+without one) or ``device="cpu"``; the parameters must already live there,
+and it runs under ``torch.inference_mode()``.
+
+The losses (``ctr_loss``, ``masked_item_loss``, ``masked_item_loss_sampled``,
+``recsys_loss``) run the same forwards as the reference trains them: plain
+gathers (:func:`~repro_torch.models.gather.gather_rows`, whose backward sums
+in a fixed order) where serving takes K6, and the chunked plain attention
+where serving takes K5; no kernel has a backward. They run on the
+parameters' device.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from repro_torch.models.attention import attention
 from repro_torch.models.common import (ParamDef, count_params, dense, layer_norm, mlp_stack,
                                        mlp_stack_defs, tree_leaves)
 from repro_torch.models.embedding import embedding_lookup
+from repro_torch.models.gather import gather_rows
 from repro_torch.parallel import compat
 from repro_torch.parallel.compat import P
 
@@ -178,14 +185,19 @@ def _ones(ids: torch.Tensor) -> torch.Tensor:
     return torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
 
 
-@torch.inference_mode()
-def fm_forward(params, batch, cfg: RecsysConfig, *, device=None):
-    """batch = {sparse (B,F) int}. Returns logits (B,). The first-order
-    term is one K6 launch over the (F·R, 1) linear table."""
-    dev = _device(params, device)
+def _lookup(table, ids, train: bool):
+    """The rows of ``table`` at ``ids``: a gather with a fixed-order
+    backward when training, ``index_select`` when serving."""
+    return gather_rows(table, ids) if train else embedding_lookup(table, ids)
+
+
+def _fm(params, batch, cfg: RecsysConfig, dev, train: bool):
     ids = _flat_ids(cfg, _on(dev, batch["sparse"]))
-    v = embedding_lookup(params["emb"], ids)                  # (B,F,D)
-    lin = embedding_bag(params["linear"], ids, _ones(ids))[:, 0]
+    v = _lookup(params["emb"], ids, train)                    # (B,F,D)
+    if train:                                                 # the reference's take + sum
+        lin = torch.sum(gather_rows(params["linear"], ids)[..., 0], dim=1)
+    else:
+        lin = embedding_bag(params["linear"], ids, _ones(ids))[:, 0]
     # 2-way term via the O(nk) identity: ½[(Σv)² − Σv²] summed over dims
     s = torch.sum(v, dim=1)                                   # (B,D)
     pair = 0.5 * torch.sum(s * s - torch.sum(v * v, dim=1), dim=-1)
@@ -193,11 +205,21 @@ def fm_forward(params, batch, cfg: RecsysConfig, *, device=None):
 
 
 @torch.inference_mode()
+def fm_forward(params, batch, cfg: RecsysConfig, *, device=None):
+    """batch = {sparse (B,F) int}. Returns logits (B,). The first-order
+    term is one K6 launch over the (F·R, 1) linear table."""
+    return _fm(params, batch, cfg, _device(params, device), False)
+
+
+@torch.inference_mode()
 def dcn_forward(params, batch, cfg: RecsysConfig, *, device=None):
     """batch = {dense (B,n_dense) f32, sparse (B,F) int}. Returns logits (B,)."""
-    dev = _device(params, device)
+    return _dcn(params, batch, cfg, _device(params, device), False)
+
+
+def _dcn(params, batch, cfg: RecsysConfig, dev, train: bool):
     ids = _flat_ids(cfg, _on(dev, batch["sparse"]))
-    v = embedding_lookup(params["emb"], ids)                  # (B,F,D)
+    v = _lookup(params["emb"], ids, train)                    # (B,F,D)
     x0 = torch.cat([_on(dev, batch["dense"]).to(cfg.dtype), v.reshape(v.shape[0], -1)], -1)
     x = x0
     for i in range(cfg.n_cross_layers):
@@ -207,27 +229,39 @@ def dcn_forward(params, batch, cfg: RecsysConfig, *, device=None):
     return (dense(h, params["head"]) + params["head_b"])[..., 0]
 
 
-def _tx_block(p, x, n_heads: int):
-    """Post-LN encoder block (BST/BERT4Rec style), bidirectional, on K5."""
+def _tx_block(p, x, n_heads: int, impl=None):
+    """Post-LN encoder block (BST/BERT4Rec style), bidirectional, on K5
+    (``impl=None``) or the chunked plain path (``"chunked"``)."""
     B, S, d = x.shape
     dh = d // n_heads
     q = dense(x, p["wq"]).reshape(B, S, n_heads, dh).transpose(1, 2)
     k = dense(x, p["wk"]).reshape(B, S, n_heads, dh).transpose(1, 2)
     v = dense(x, p["wv"]).reshape(B, S, n_heads, dh).transpose(1, 2)
-    o = attention(q, k, v)                                    # bidirectional
+    o = attention(q, k, v, **({} if impl is None else {"impl": impl}))   # bidirectional
     o = o.transpose(1, 2).reshape(B, S, d)
     x = layer_norm(x + dense(o, p["wo"]), p["ln1_g"], p["ln1_b"])
     h = mlp_stack(p["ffn"], x)
     return layer_norm(x + h, p["ln2_g"], p["ln2_b"])
 
 
-def _encode(params, seq: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
+def _encode(params, seq: torch.Tensor, cfg: RecsysConfig, train: bool = False) -> torch.Tensor:
     """Item embeddings + positions through the blocks: (B,S) → (B,S,D)."""
-    x = embedding_lookup(params["item_emb"], seq)
+    x = _lookup(params["item_emb"], seq, train)
     x = x + params["pos_emb"][None, : x.shape[1]]
     for i in range(cfg.n_blocks):
-        x = _tx_block(params[f"b{i}"], x, cfg.n_heads)
+        x = _tx_block(params[f"b{i}"], x, cfg.n_heads, "chunked" if train else None)
     return x
+
+
+def _bst(params, batch, cfg: RecsysConfig, dev, train: bool):
+    seq = torch.cat([_on(dev, batch["seq"]), _on(dev, batch["target"])[:, None]], dim=1)
+    x = _encode(params, seq, cfg, train)
+    return mlp_stack(params["mlp"], x.reshape(x.shape[0], -1))[..., 0]
+
+
+def _bert4rec(params, batch, cfg: RecsysConfig, dev, train: bool):
+    x = _encode(params, _on(dev, batch["seq"]), cfg, train)
+    return x @ params["item_emb"].T + params["out_b"]
 
 
 @torch.inference_mode()
@@ -236,10 +270,7 @@ def bst_forward(params, batch, cfg: RecsysConfig, *, device=None):
 
     Transformer over [history ; target] with position embeddings, then the
     flattened sequence through the MLP tower → CTR logit (B,)."""
-    dev = _device(params, device)
-    seq = torch.cat([_on(dev, batch["seq"]), _on(dev, batch["target"])[:, None]], dim=1)
-    x = _encode(params, seq, cfg)
-    return mlp_stack(params["mlp"], x.reshape(x.shape[0], -1))[..., 0]
+    return _bst(params, batch, cfg, _device(params, device), False)
 
 
 @torch.inference_mode()
@@ -247,15 +278,90 @@ def bert4rec_forward(params, batch, cfg: RecsysConfig, *, device=None):
     """batch = {seq (B,S) int with [MASK]=n_items+1, [PAD]=n_items}.
 
     Returns logits (B,S,n_items+2) via the tied item embedding."""
-    dev = _device(params, device)
-    x = _encode(params, _on(dev, batch["seq"]), cfg)
-    return x @ params["item_emb"].T + params["out_b"]
+    return _bert4rec(params, batch, cfg, _device(params, device), False)
+
+
+_FORWARDS = {"fm": _fm, "dcn": _dcn, "bst": _bst, "bert4rec": _bert4rec}
 
 
 def recsys_forward(params, batch, cfg: RecsysConfig, *, device=None):
     fn = {"fm": fm_forward, "dcn": dcn_forward, "bst": bst_forward,
           "bert4rec": bert4rec_forward}[cfg.kind]
     return fn(params, batch, cfg, device=device)
+
+
+# -- losses ---------------------------------------------------------------------------
+
+
+def _train_forward(params, batch, cfg: RecsysConfig):
+    """The training forward: plain gathers and attention, on the
+    parameters' device, differentiable."""
+    return _FORWARDS[cfg.kind](params, batch, cfg, tree_leaves(params)[0].device, True)
+
+
+def ctr_loss(params, batch, cfg: RecsysConfig):
+    """Binary logloss for fm/dcn/bst. batch['label'] (B,) in {0,1}."""
+    logits = _train_forward(params, batch, cfg).float()
+    y = _on(logits.device, batch["label"]).float()
+    ll = torch.clamp(logits, min=0) - logits * y + torch.log1p(torch.exp(-torch.abs(logits)))
+    loss = torch.mean(ll)
+    auc_proxy = torch.mean(((logits > 0) == (y > 0.5)).float())
+    return loss, {"loss": loss, "acc": auc_proxy}
+
+
+def _masked_nll(logits32, labels) -> torch.Tensor:
+    """Mean over the valid labels (≥ 0) of logsumexp − the gold logit."""
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0)
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, lab[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, 0.0)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def masked_item_loss(params, batch, cfg: RecsysConfig):
+    """BERT4Rec masked-item CE. batch = {seq, labels (B,S) int, -1=unmasked}."""
+    logits = _train_forward(params, batch, cfg).float()
+    loss = _masked_nll(logits, _on(logits.device, batch["labels"]).long())
+    return loss, {"loss": loss}
+
+
+def masked_item_loss_sampled(params, batch, cfg: RecsysConfig):
+    """Sampled-softmax masked-item loss — the production path for 10⁶-item
+    vocabs.
+
+    batch = {seq (B,S), mask_pos (B,P) int, labels (B,P) int (-1 pad),
+             neg_ids (N,) int} — negatives shared across the batch (uniform
+    sampling, no log-uniform correction, as the reference)."""
+    dev = tree_leaves(params)[0].device
+    x = _encode(params, _on(dev, batch["seq"]), cfg, True)          # (B,S,D)
+    B, S, D = x.shape
+    mask_pos = _on(dev, batch["mask_pos"]).long()
+    rows = mask_pos + S * torch.arange(B, device=dev)[:, None]
+    xm = gather_rows(x.reshape(B * S, D), rows)                      # (B,P,D)
+    labels = _on(dev, batch["labels"]).long()
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0)
+    neg_ids = _on(dev, batch["neg_ids"]).long()
+    pos_emb = gather_rows(params["item_emb"], lab)                   # (B,P,D)
+    pos_b = gather_rows(params["out_b"], lab)
+    neg_emb = gather_rows(params["item_emb"], neg_ids)               # (N,D)
+    neg_b = gather_rows(params["out_b"], neg_ids)
+    logit_pos = torch.sum(xm * pos_emb, dim=-1) + pos_b              # (B,P)
+    logit_neg = torch.einsum("bpd,nd->bpn", xm, neg_emb) + neg_b     # (B,P,N)
+    all_logits = torch.cat([logit_pos[..., None], logit_neg], dim=-1)
+    lse = torch.logsumexp(all_logits.float(), dim=-1)
+    nll = torch.where(valid, lse - logit_pos.float(), 0.0)
+    loss = nll.sum() / torch.clamp(valid.sum(), min=1)
+    return loss, {"loss": loss}
+
+
+def recsys_loss(params, batch, cfg: RecsysConfig):
+    if cfg.kind == "bert4rec":
+        if "mask_pos" in batch:
+            return masked_item_loss_sampled(params, batch, cfg)
+        return masked_item_loss(params, batch, cfg)
+    return ctr_loss(params, batch, cfg)
 
 
 _bert4rec_hidden = _encode                                    # the reference's name

@@ -14,6 +14,7 @@ One definition covers the reference's LM architectures:
 
 Entry points:
 
+* ``lm_loss``    — causal-LM cross entropy, the train step's body;
 * ``lm_forward`` — full-sequence logits and the sum of the layers' MoE aux
   losses;
 * ``lm_prefill`` — prompt → (last-token logits, kv cache);
@@ -38,11 +39,16 @@ kernel there. Decode writes the new token's k/v (or latent) into the cache
 IN PLACE and returns the same dict: the PyTorch idiom, where the reference
 returns a new array.
 
-The training entry ``lm_loss`` is not ported yet (ROADMAP Queue 1 item 8).
-``remat``, ``remat_policy`` and
-``unroll`` are accepted and change nothing, as there is no backward pass;
-nor does ``attn_block_q``, the reference's chunked-attention block, as K5
-keeps its own tiles.
+Training and serving share one layer body (``_layer``) and part at the
+attention: the serving entries run under ``torch.inference_mode()`` on K5,
+which has no backward; ``lm_loss`` takes the parameters as the reference's
+tree (the ``layers`` axis stacked, leaves that require grad), runs the
+plain ``impl="chunked"`` attention in blocks of ``attn_block_q`` queries —
+the reference's training path, which never reaches its Pallas kernel — and
+gathers the token embeddings with :func:`~repro_torch.models.gather.gather_rows`,
+whose backward sums in a fixed order. ``remat`` and ``remat_policy``
+recompute each layer in the backward pass (``_maybe_remat``). ``unroll``
+is the reference's dry-run knob and changes nothing here.
 """
 
 from __future__ import annotations
@@ -57,8 +63,9 @@ from torch import nn
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.common import (ParamDef, count_params, dense, gelu_mlp,
-                                       gelu_mlp_defs, rms_norm, swiglu_mlp,
-                                       swiglu_mlp_defs, tree_map)
+                                       gelu_mlp_defs, remat, rms_norm, swiglu_mlp,
+                                       swiglu_mlp_defs, tree_map, unstack_layers)
+from repro_torch.models.gather import gather_rows
 from repro_torch.models.moe import MoEConfig, moe_defs, moe_ffn
 from repro_torch.models.rope import apply_rope
 
@@ -248,11 +255,17 @@ def _out(p, o, cfg: LMConfig):
     return dense(o.transpose(1, 2).reshape(B, S, H * Dh), p["wo"])
 
 
-def _gqa_attn(p, x, cfg: LMConfig, positions):
+def _attn_kw(cfg: LMConfig, impl: "str | None") -> dict:
+    """``attention``'s implementation: K5 (``None``) or the chunked plain
+    path in blocks of ``cfg.attn_block_q`` queries."""
+    return {} if impl is None else {"impl": impl, "block_q": cfg.attn_block_q}
+
+
+def _gqa_attn(p, x, cfg: LMConfig, positions, impl=None):
     """Causal GQA self-attention over x. Returns (out, (k, v)) — the new
     kv for the cache."""
     q, k, v = _qkv(p, x, cfg, positions)
-    o = attention(q, k, v, causal=True, window=cfg.window)
+    o = attention(q, k, v, causal=True, window=cfg.window, **_attn_kw(cfg, impl))
     return _out(p, o, cfg), (k, v)
 
 
@@ -287,7 +300,7 @@ def _mla_qkv(p, x, cfg: LMConfig, positions):
     return q_nope, q_rope, c_kv, k_rope
 
 
-def _mla_attn_full(p, x, cfg: LMConfig, positions):
+def _mla_attn_full(p, x, cfg: LMConfig, positions, impl=None):
     """MLA self-attention (prefill): the latent expanded per head, then K5
     at qk dim nope + rope and v dim v_dim."""
     m = cfg.mla
@@ -299,7 +312,8 @@ def _mla_attn_full(p, x, cfg: LMConfig, positions):
     k = torch.cat([k_nope, k_rope[:, None].expand(B, H, S, m.rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     scale = 1.0 / math.sqrt(m.nope_dim + m.rope_dim)
-    o = attention(q, k, v, causal=True, sm_scale=scale)  # (B,H,S,v_dim)
+    o = attention(q, k, v, causal=True, sm_scale=scale,
+                  **_attn_kw(cfg, impl))                 # (B,H,S,v_dim)
     return _out(p, o, cfg), (c_kv, k_rope)
 
 
@@ -358,14 +372,14 @@ def _ffn(p, x, cfg: LMConfig):
     return swiglu_mlp(p, x), zero
 
 
-def _layer(p, x, cfg: LMConfig, positions):
+def _layer(p, x, cfg: LMConfig, positions, impl=None):
     """Pre-norm block. Returns (x, aux, cache entry: (k, v), or the MLA
-    latent (c_kv, k_rope))."""
+    latent (c_kv, k_rope)). ``impl``: the attention's (None: K5)."""
     h = rms_norm(x, p["ln1"])
     if cfg.mla is not None:
-        a, entry = _mla_attn_full(p["attn"], h, cfg, positions)
+        a, entry = _mla_attn_full(p["attn"], h, cfg, positions, impl)
     else:
-        a, entry = _gqa_attn(p["attn"], h, cfg, positions)
+        a, entry = _gqa_attn(p["attn"], h, cfg, positions, impl)
     x = x + a
     f, aux = _ffn(p["ffn"], rms_norm(x, p["ln2"]), cfg)
     return x + f, aux, entry
@@ -395,6 +409,53 @@ def lm_forward(params: LM, tokens, cfg: LMConfig, *, positions=None, device=None
         auxes.append(aux)
     logits = dense(rms_norm(x, params.ln_f), params.unembed)
     return logits, torch.stack(auxes).float().sum()
+
+
+# -- training -------------------------------------------------------------------------
+
+
+def _maybe_remat(body, cfg: LMConfig):
+    """``body`` recomputed in the backward pass per ``cfg.remat_policy``
+    (:func:`~repro_torch.models.common.remat`); as is without ``cfg.remat``."""
+    if not cfg.remat:
+        return body
+    return remat(body, cfg.remat_policy)
+
+
+def lm_loss(params: dict, batch, cfg: LMConfig):
+    """batch = {tokens (B,S), labels (B,S) int, -1 = ignore} → (loss + aux
+    weight · aux, {"loss", "aux", "ppl"}). ``params``: the reference's tree
+    (``lm_param_defs``) of tensors; the batch moves to their device. No
+    ``inference_mode``, the plain chunked attention, each layer remat'd."""
+    embed = params["embed"]
+    dev = embed.device
+    tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.long)
+    labels = torch.as_tensor(batch["labels"]).to(dev, torch.long)
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=dev)
+    x = gather_rows(embed, tokens)                        # (B,S,d)
+
+    def body(x, lp):
+        y, aux, _ = _layer(lp, x, cfg, positions, impl="chunked")
+        return y, aux
+
+    body = _maybe_remat(body, cfg)
+    auxes = []
+    for lp in unstack_layers(params["layers"], cfg.n_layers):
+        x, aux = body(x, lp)
+        auxes.append(aux)
+    logits = dense(rms_norm(x, params["ln_f"]), params["unembed"])
+    aux = torch.stack(auxes).float().sum()
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0)
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, lab[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, 0.0)
+    n = torch.clamp(valid.sum(), min=1)
+    loss = nll.sum() / n
+    total = loss + cfg.aux_loss_weight * aux
+    return total, {"loss": loss, "aux": aux, "ppl": torch.exp(torch.clamp(loss, max=20.0))}
 
 
 # -- serving: prefill + decode ------------------------------------------------------

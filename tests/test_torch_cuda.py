@@ -823,3 +823,111 @@ def test_moe_combine_is_deterministic_on_the_card(cuda):
     with use_mesh(StackedMesh((1, 4), device=cuda)):
         ep_keep, ep_slots = ep_tables(params, x, cfg)
     assert torch.equal(ep_keep, keep) and torch.equal(ep_slots, slots)
+
+
+# -- training: the kernels refuse grad; the plain paths train ------------------------------
+
+
+def _grad_inputs(name, device):
+    """(call, the float inputs that may require grad) of K1–K4 at a small shape."""
+    g = torch.Generator().manual_seed(0)
+    if name == "K3":
+        tf = torch.randint(0, 5, (2, 3, 128), generator=g, dtype=torch.uint8).to(device)
+        dl = (torch.rand(2, 3, 128, generator=g) * 50 + 1).to(device)
+        idf = torch.rand(2, generator=g).to(device)
+        return (lambda dl, idf: bm25_block_scores(tf, dl, idf, *_F32)), (dl, idf)
+    if name == "K2":
+        return (lambda s: topk(s, 5)), (torch.randn(3, 200, generator=g).to(device),)
+    if name == "K4":
+        return ((lambda q, c: dot_topk_batch(q, c, 5)),
+                (torch.randn(2, 16, generator=g).to(device),
+                 torch.randn(300, 16, generator=g).to(device)))
+    tf, dl, docs, idf_q, ub, valid = (torch.as_tensor(x).to(device) for x in synth_pruned_blocks(
+        0, n_terms=2, max_blocks=2, n_docs=1000))
+    return ((lambda dl, idf_q: bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid, *_F32, k=5,
+                                                n_docs=1000)),
+            (dl.float(), idf_q.float()))
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4"])
+def test_kernels_refuse_inputs_that_require_grad(cuda, name):
+    call, inputs = _grad_inputs(name, cuda)
+    call(*inputs)                                       # launches without grad
+    live = [x.clone().requires_grad_(True) for x in inputs]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(*live)
+    with torch.no_grad():
+        call(*live)
+
+
+def test_moe_train_step_gives_the_router_its_cpu_gradient(cuda):
+    """olmoe's reduced config (global dispatch) on the card: K2 picks the
+    experts, the gates come from the probabilities, so the router gets a
+    nonzero gradient, the CPU twin's within f32 tolerance."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import init_params, tree_map
+    from repro_torch.models.transformer import lm_loss, lm_param_defs
+    from repro_torch.train.steps import value_and_grad
+    cfg = get_arch("olmoe-1b-7b").reduced_config()
+    params = init_params(lm_param_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 33)).astype(np.int64)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    from repro_torch.kernels import topk as k2
+    before = k2.topk.launches
+    out = {}
+    for dev in ("cpu", cuda):
+        on = tree_map(lambda t: t.to(dev), params)
+        loss, _, grads = value_and_grad(lambda p, b: lm_loss(p, b, cfg), on, batch)
+        out[str(dev)] = (float(loss), grads["layers"]["ffn"]["router"].cpu())
+    assert k2.topk.launches > before                    # the router's top-k ran on K2
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(cuda)]
+    assert float(g_gpu.abs().sum()) > 0
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-3, atol=1e-6)
+
+
+GNN_REPEAT = r"""
+import os, sys
+import numpy as np, torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.configs import get_arch
+from repro_torch.data.graphs import NeighborSampler, synth_graph
+from repro_torch.models.common import init_params, tree_leaves
+from repro_torch.models.gnn import gnn_loss, gnn_param_defs
+from repro_torch.train.optim import OptConfig
+from repro_torch.train.steps import init_train_state, make_train_step
+cfg = get_arch("graphcast").full_config(d_feat=64, n_layers=4, aggregator="mean")
+g = synth_graph(20_000, avg_degree=10, d_feat=64, seed=0)
+sub = NeighborSampler(g, fanout=(15, 10), seed=0).sample(np.arange(128), step=0)
+sub["target"] = np.random.default_rng(1).normal(size=(len(sub["feat"]), 227)).astype(np.float32)
+step = make_train_step(lambda p, b: gnn_loss(p, b, cfg), OptConfig(lr=1e-3, warmup_steps=1))
+runs = []
+for _ in range(2):
+    state = init_train_state(init_params(gnn_param_defs(cfg), torch.Generator().manual_seed(0),
+                                         "cuda"))
+    for _ in range(2):
+        state, m = step(state, sub)
+    runs.append([t.cpu() for t in tree_leaves(state)])
+same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(*runs))
+print("SAME" if same else "DIFFERENT")
+"""
+
+
+def test_graphcast_train_steps_repeat_bitwise_under_deterministic_algorithms(cuda, tmp_path):
+    """Two graphcast steps (4 layers at d 512, mean aggregation — a segment
+    sum over the sorted edges, divided by the counts — on a fanout-15-10
+    sample) run twice from one init: the same bits. Under
+    ``torch.use_deterministic_algorithms(True)`` (cuBLAS's workspace set
+    before it starts, so in a process of its own), an op without a
+    deterministic kernel on the card raises and names itself."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", GNN_REPEAT], capture_output=True, text=True,
+                         env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "SAME"

@@ -52,6 +52,13 @@ def test_every_module_imports_without_jax_or_repro():
                      "repro_torch.models.moe", "repro_torch.models.moe_ep",
                      "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v2_236b"]
         assert set(serve_moe) <= set(names), sorted(set(serve_moe) - set(names))
+        train = ["repro_torch.train", "repro_torch.train.optim", "repro_torch.train.steps",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.manager", "repro_torch.ft",
+                 "repro_torch.ft.faults", "repro_torch.launch.mesh", "repro_torch.launch.train",
+                 "repro_torch.parallel.sharding", "repro_torch.configs.cells",
+                 "repro_torch.configs.graphcast", "repro_torch.models.gnn",
+                 "repro_torch.models.gather", "repro_torch.data.graphs"]
+        assert set(train) <= set(names), sorted(set(train) - set(names))
         spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -213,3 +220,21 @@ def test_moe_lm_entry_points_need_a_card_unless_asked_for_cpu():
                 call()
         logits, aux = lm_forward(model, toks, cfg, device="cpu")
         assert logits.shape == (1, 6, cfg.vocab) and float(aux) > 0
+
+
+def test_training_entry_points_need_a_card_unless_asked_for_cpu():
+    """``launch.train`` without ``--device`` and the meshes without a
+    device mean the card, and raise without one, before anything is built."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    from repro_torch.launch import mesh, train
+    from repro_torch.models.weights import train_state_from_numpy
+    from repro_torch.models.gnn import gnn_param_defs
+    from repro_torch.configs import get_arch
+    defs = gnn_param_defs(get_arch("graphcast").reduced_config())
+    for call in (lambda: train.main(["--preset", "reduced", "--steps", "1"]),
+                 lambda: mesh.make_host_mesh(),
+                 lambda: mesh.make_production_mesh(),
+                 lambda: train_state_from_numpy({"params": {}, "opt": {}}, defs)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

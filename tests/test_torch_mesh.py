@@ -307,9 +307,10 @@ def test_state_specs_abstract_state_and_extent_check():
                                                                 np.zeros((1, 8)))
     mod = get_arch("anlessini")
     assert family("search") == ["anlessini"] and mod.SHAPES["serve_q64"] == {"Q": 64}
-    for call in (mod.rules, lambda: mod.cells(None)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    rules = mod.rules()                     # the reference's rules since the sharding port
+    assert dict(rules.mapping) == {} and tuple(rules.batch) == ("data",)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        mod.cells(rules)
 
 
 def test_heterogeneous_packs_are_refused(corpus):
