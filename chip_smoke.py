@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: drive the single-node BM25 query
 path, the partitioned fleet, the structured tier, the mesh path, the serve
-launcher, the LM serving paths (dense, MoE, MLA), recsys serving and the
-training path on one NVIDIA GPU and hold every hand-written kernel against
-its plain PyTorch twin.
+launcher, the LM serving paths (dense, MoE, MLA), recsys serving, the
+training path and the cells (the dry run, the cells that fit, sharded
+training's launcher) on one NVIDIA GPU and hold every hand-written kernel
+against its plain PyTorch twin.
 
     python3 chip_smoke.py                 # 500,000-doc partition (the default)
     python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
@@ -17,6 +18,7 @@ its plain PyTorch twin.
     python3 chip_smoke.py --serve-only    # phases 1, 2 and 11 (no ok line)
     python3 chip_smoke.py --moe-only      # phases 1, 2, 12 and 13 (no ok line)
     python3 chip_smoke.py --train-only    # phases 1, 2 and 14 (no ok line)
+    python3 chip_smoke.py --cells-only    # phases 1, 2 and 15 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -200,8 +202,29 @@ Phases (each raises on failure; the script then exits non-zero):
      below the first 10's; (d) fm and dcn-v2 at ``full_config()`` on 65,536
      rows (train_batch), 3 steps each, and bert4rec's sampled loss at 4,096
      sequences. Step walls, peak memory and losses are printed, and a
-     ``{"training": ...}`` JSON line. The models are released before the
-     kernels line.
+     ``{"training": ...}`` JSON line. The models are released;
+ 15. the cells (``repro_torch.configs.build_cells``): (a) the dry run,
+     ``repro_torch.launch.dryrun`` over every full cell on both production
+     meshes ((16, 16) and (2, 16, 16) stacked on ``meta``) in worker
+     processes beside (b), into a temporary directory, a line a record
+     (FLOPs a device, peak, arguments, trace seconds); every cell ok or a
+     skip the reference also skips; (b) every full single-pod cell whose
+     global arguments plus its trace's peak fit 60 GB, materialized on the
+     card from numpy seeds (``--seed`` and up; parameters through
+     ``models/weights.py``, larger leaves tiling a seeded block) and run: outputs finite and shaped as the
+     meta trace at the same arguments, a train cell's loss finite and its
+     first parameter leaf moved, each cell's launches of K1–K6 counted
+     (K2, K4, K5, K6 must run, K1 and K3 not); the LM serving cells of the
+     archs whose weights fit at batch 1 (cut); (c) ``launch.train --arch
+     stablelm-3b --preset 100m --steps 10 --batch 16 --seq 256`` on ``--mesh
+     prod`` and ``--mesh host``: the same loss bits (the production mesh is
+     stacked on the card, so its step is the host step: this checks that
+     batch and state split over 16 x 16); then ``--mesh host`` in 2
+     processes of a gloo group on the card, a (2, 1) rank mesh and so the
+     sharded step (gradient and metrics averaged by gloo, the clip over the
+     whole reduced gradient, AdamW on each rank's blocks): each step's loss
+     within 1e-4 of the host step's and its grad norm within 1e-4 of
+     itself.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -226,7 +249,8 @@ chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
 ``--mesh-only`` runs phases 1-2 and then phase 10.
 
 ``--serve-only`` runs phases 1-2 and then phase 11; ``--moe-only`` phases
-1-2 and then phases 12 and 13; ``--train-only`` phases 1-2 and then phase 14.
+1-2 and then phases 12 and 13; ``--train-only`` phases 1-2 and then phase 14;
+``--cells-only`` phases 1-2 and then phase 15.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -3305,6 +3329,434 @@ def train_phase(kern, torch, device="cuda") -> tuple[dict, dict]:
     return out, {"phase 14 (training)": launches}
 
 
+
+# -- phase 15: the cells: the dry run, the cells that fit on the card, the launcher's mesh
+
+CELLS_FIT_BYTES = 60e9          # global arguments + the trace's peak a card run may take
+CELLS_SEED_BLOCK = 1 << 22      # seeded values a leaf draws; a larger leaf tiles them
+CELLS_LM_BATCH = 1              # LM serving cells run at this batch (cut from 32 / 128)
+CELLS_LAUNCHER = ["--arch", "stablelm-3b", "--preset", "100m", "--steps", "10", "--batch",
+                  "16", "--seq", "256", "--log-every", "100"]
+CELLS_ON_PATH = ("K2", "K4", "K5", "K6")    # the kernels the cells launch; K1 and K3 are not
+CELLS_JOBS = 7                  # dry-run cells traced at a time, each in a worker process
+CELLS_RANKS = 2                 # processes of phase 15c's rank mesh, all on the one card
+
+
+def seeded_block(n: int, *, integer: bool, seed: int, high: int = 4, scale: float = 0.05,
+                 positive: bool = False) -> "np.ndarray":
+    """At most CELLS_SEED_BLOCK of a leaf's ``n`` values, made from ``seed``
+    by tests/test_system.py's rule: integers in [0, high), floats normal ×
+    ``scale`` (|·| for batch floats). A larger leaf tiles them: a full
+    LM's billions of parameters would take minutes to draw on the host."""
+    rng = np.random.default_rng(seed)
+    m = min(n, CELLS_SEED_BLOCK)
+    if integer:
+        return rng.integers(0, high, m).astype(np.int32)
+    block = (rng.standard_normal(m) * scale).astype(np.float32)
+    return np.abs(block) if positive else block
+
+
+def tiled_on(device, block: "np.ndarray", shape, dtype, torch):
+    """``block`` on the card, tiled there over ``shape`` in ``dtype``."""
+    n = math.prod(shape)
+    t = torch.from_numpy(block).to(device)
+    return t.repeat(-(-n // max(t.numel(), 1)))[:n].reshape(shape).to(dtype)
+
+
+def cell_args(cell, args, torch, device, seed, held: dict):
+    """A cell's arguments on the card, from seeds: each parameter leaf a
+    numpy array through ``models/weights.py::tree_from_numpy`` (a train
+    cell's state is ``init_train_state`` of those parameters: zero moments,
+    as the reference's smoke test makes it), batch and cache leaves by the
+    same rule, tiled on the card, a graph's edges over all its nodes. The
+    serving cells of one arch share one parameter tree, kept in ``held``."""
+    from repro_torch.models.common import ParamDef, tree_map
+    from repro_torch.models.weights import tree_from_numpy
+    from repro_torch.train.steps import init_train_state
+    seeds = iter(range(seed, seed + 1_000_000))
+
+    def param(t):
+        shape = tuple(t.shape)
+        n = math.prod(shape)
+        block = seeded_block(n, integer=False, seed=next(seeds))
+        arr = (np.resize(block, n) if n > block.size else block).reshape(shape)
+        return tree_from_numpy(arr, ParamDef(shape, (None,) * t.dim(), dtype=t.dtype),
+                               device=device)
+
+    def batch_leaf(t, high=4):
+        block = seeded_block(t.numel(), integer=not t.is_floating_point(), seed=next(seeds),
+                             high=high, positive=True)
+        return tiled_on(device, block, tuple(t.shape), t.dtype, torch)
+
+    def batch_tree(tree):
+        if not isinstance(tree, dict):
+            return batch_leaf(tree)
+        nodes = tree["feat"].shape[-2] if "feat" in tree and "src" in tree else 4
+        return {k: batch_tree(v) if isinstance(v, dict) else
+                batch_leaf(v, nodes if k in ("src", "dst") else 4) for k, v in tree.items()}
+
+    out = []
+    for i, a in enumerate(args):
+        if i == 0 and cell.kind == "train":
+            out.append(init_train_state(tree_map(param, a["params"])))
+        elif i == 0:
+            if "params" not in held:
+                held["params"] = tree_map(param, a)
+            out.append(held["params"])
+        else:
+            out.append(batch_tree(a))
+    return tuple(out)
+
+
+def lm_cut(cell, batch: int):
+    """An LM serving cell's abstract arguments at ``batch`` sequences."""
+    import torch
+    from repro_torch.configs.cells import LM_SHAPES, SDS, _lm_cache_abstract
+    cfg = cell.fn.keywords["cfg"]
+    S = LM_SHAPES[cell.shape]["seq"]
+    if cell.kind == "prefill":
+        return (cell.args[0], SDS((batch, S), torch.int32))
+    return (cell.args[0], _lm_cache_abstract(cfg, batch, S), SDS((batch, 1), torch.int32),
+            SDS((), torch.int32))
+
+
+def meta_trace(fn, args, mesh):
+    """``fn(*args)`` on meta tensors: its outputs' shapes, and the global
+    argument bytes and peak of new storage the dry run's ``CostMode`` sees."""
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import compat
+    with compat.use_mesh(mesh), dryrun.CostMode() as cost:
+        out = fn(*args)
+    arg_bytes = sum(t.numel() * t.element_size() for t in dryrun._tensors(args))
+    return out, arg_bytes, cost.peak
+
+
+def leaves_of(tree) -> list:
+    from repro_torch.launch import dryrun
+    return dryrun._tensors(tree)
+
+
+class DryRun:
+    """Phase 15a in a thread while 15b runs: ``repro_torch.launch.dryrun``
+    over every full cell on both production meshes (single-pod first), into
+    a temporary directory, its worker processes on the host's other cores.
+    ``record(name)`` waits for one single-pod record."""
+
+    def __init__(self, jobs: int):
+        import tempfile
+        import threading
+        self.tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+        self.jobs = jobs
+        self.records: list = []
+        self.error = None
+        self.cond = threading.Condition()
+        self.t0 = time.perf_counter()
+        self.wall = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        from repro_torch.launch import dryrun
+        try:
+            for rec in dryrun.run_iter(out=self.tmp.name, force=True, jobs=self.jobs):
+                print(f"[15a] {dryrun.describe(rec)}", flush=True)
+                with self.cond:
+                    self.records.append(rec)
+                    self.cond.notify_all()
+        except Exception as e:        # reported by result(); the phase fails there
+            self.error = e
+        finally:
+            with self.cond:
+                self.wall = time.perf_counter() - self.t0
+                self.cond.notify_all()
+
+    def record(self, name: str) -> dict:
+        with self.cond:
+            while True:
+                for r in self.records:
+                    if r["cell"] == name and r["mesh"] == "pod1_16x16":
+                        return r
+                require(self.wall is None, f"dry run ended without a record of {name}: "
+                                           f"{self.error!r}")
+                self.cond.wait()
+
+    def result(self) -> tuple[list, dict]:
+        """Every record, once the run has ended: each ok or a skip the
+        reference also skips (512k tokens on a full-attention arch)."""
+        from repro_torch.configs.cells import LONG_NOTE
+        self.thread.join()
+        self.tmp.cleanup()
+        require(self.error is None, f"dry run: {self.error!r}")
+        bad = [r["cell"] for r in self.records if not (r.get("ok") or (
+            r.get("skip") and r["note"] == LONG_NOTE))]
+        require(not bad, f"dry run: cells neither ok nor a reference skip: {bad}")
+        per_mesh = {}
+        for r in self.records:
+            m = per_mesh.setdefault(r["mesh"], {"ok": 0, "skip": 0, "trace_s": 0.0})
+            m["skip" if r.get("skip") else "ok"] += 1
+            m["trace_s"] += r.get("compile_s", 0.0)
+        print(f"[15a] dry run: {len(self.records)} (cell, mesh) records in {self.wall:.1f} s "
+              f"({self.jobs} worker processes); {per_mesh}", flush=True)
+        return self.records, dict(wall_s=self.wall, per_mesh=per_mesh)
+
+
+def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
+    """Phase 15b: every full single-pod cell whose global arguments plus its
+    trace's peak fit CELLS_FIT_BYTES, materialized on the card from seeds;
+    the LM serving cells at CELLS_LM_BATCH sequences (cut) when the full
+    weights plus that trace's peak fit. Each run holds its outputs finite
+    and shaped as the meta trace at the same arguments (a train cell: the
+    loss finite, the new parameters finite, the first leaf moved), and
+    counts its launches of K1–K6."""
+    from repro_torch.configs import build_cells
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import compat
+    from repro_torch.parallel.compat import StackedMesh
+    meta_mesh = StackedMesh((1, 1), device="meta")
+    card_mesh = StackedMesh((1, 1), device=device)
+    prod_meta = make_production_mesh(device="meta")
+    prod_card = make_production_mesh(device=device)
+    results, launches = {}, {}
+    held: dict = {}                 # one arch's serving parameters, while its cells run
+    cells = {}
+    from repro_torch.configs import ASSIGNED
+    # the LMs last: their train cells' records (the dry run's longest traces)
+    # come in while the others run
+    for arch in sorted(ASSIGNED + ["anlessini"], key=lambda a: a in LM_ARCHS):
+        for shape, cell in build_cells(arch).items():
+            cells[f"{arch}/{shape}"] = cell
+    for name, cell in cells.items():
+        rec = dry.record(name)
+        if held.get("arch") != name.split("/")[0]:
+            held.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            held["arch"] = name.split("/")[0]
+        if rec.get("skip"):
+            continue
+        lm = name.split("/")[0] in LM_ARCHS and cell.kind in ("prefill", "decode")
+        late = hasattr(cell, "build")
+        if late:
+            fn, args, _ = cell.build(prod_meta)
+            mesh_meta, mesh_card = prod_meta, prod_card
+        else:
+            fn, args = cell.fn, cell.args
+            mesh_meta, mesh_card = meta_mesh, card_mesh
+        if lm:
+            args = lm_cut(cell, CELLS_LM_BATCH)
+        want, arg_bytes, peak = meta_trace(fn, args, mesh_meta)
+        if not lm:
+            arg_bytes, peak = rec["global"]["argument_bytes"], rec["global"]["peak_bytes"]
+        if arg_bytes + peak > CELLS_FIT_BYTES:
+            results[name] = dict(run=False, bytes=arg_bytes + peak)
+            continue
+        t0 = time.perf_counter()
+        if late:
+            run_fn = cell.build(prod_card)[0]
+            cargs = anlessini_args(args, torch, device, seed)
+        else:
+            run_fn = fn
+            cargs = cell_args(cell, args, torch, device, seed, held)
+        torch.cuda.synchronize()
+        t_make = time.perf_counter() - t0
+        before = (leaves_of(cargs[0]["params"])[0].detach().clone()
+                  if cell.kind == "train" else None)
+        reset(kern)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with compat.use_mesh(mesh_card):
+            out = run_fn(*cargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_card = torch.cuda.max_memory_allocated()
+        got = {k: fn_.launches for k, fn_ in kern.items()}
+        launches[f"phase 15 {name}"] = got
+        if cell.kind == "train":
+            new_state, metrics = out
+            loss = float(metrics["loss"])
+            require(math.isfinite(loss), f"{name}: loss {loss}")
+            gl, wl = leaves_of(new_state), leaves_of(want[0])
+            after = leaves_of(new_state["params"])[0]
+            require(not torch.equal(before, after), f"{name}: the first parameter leaf did "
+                                                    "not move")
+        else:
+            loss = None
+            gl, wl = leaves_of(out), leaves_of(want)
+        require(len(gl) == len(wl) and all(
+            tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype for g, w in zip(gl, wl)),
+            f"{name}: output shapes {[tuple(g.shape) for g in gl]} != the meta trace's "
+            f"{[tuple(w.shape) for w in wl]}")
+        require(all(bool(torch.isfinite(g.float()).all()) for g in gl if g.is_floating_point()),
+                f"{name}: non-finite outputs")
+        cut = f"batch {CELLS_LM_BATCH} (cut)" if lm else "full"
+        results[name] = dict(run=True, cut=cut, make_s=t_make, wall_ms=wall * 1e3,
+                             peak=peak_card, loss=loss, launches=got,
+                             bytes=arg_bytes + peak)
+        print(f"[15b] {name} at {cut}: made in {t_make:.1f} s, ran in {wall * 1e3:.1f} ms, "
+              f"peak {peak_card} B (trace: args + peak {arg_bytes + peak} B), outputs finite "
+              f"and shaped as the meta trace{'' if loss is None else f', loss {loss:.6g}'}; "
+              f"launches {got}", flush=True)
+        del out, cargs, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    held.clear()
+    ran = [n for n, r in results.items() if r["run"]]
+    print(f"[15b] {len(ran)} cells ran on the card: {ran}; not run (over "
+          f"{CELLS_FIT_BYTES:.0f} B): {[n for n, r in results.items() if not r['run']]}",
+          flush=True)
+    total = {k: sum(c[k] for c in launches.values()) for k in kern}
+    require(all(total[k] > 0 for k in CELLS_ON_PATH) and total["K1"] == total["K3"] == 0,
+            f"phase 15b launches {total}: K2, K4, K5, K6 expected, K1 and K3 not")
+    return results, launches
+
+
+LM_ARCHS = ("olmoe-1b-7b", "deepseek-v2-236b", "starcoder2-3b", "stablelm-3b", "h2o-danube-1.8b")
+
+
+def anlessini_args(args, torch, device, seed):
+    """The mesh search cell's partitioned index from seeds, tiled on the
+    card: even term offsets, docs in [0, n_docs] (n_docs: a pad), tf 1-4
+    on live docs, lengths, idf, (k1, b, avgdl); queries over the
+    vocabulary."""
+    state, tids, qtf = args
+    Pn, NB, B = state["block_docs"].shape
+    V = state["idf"].shape[0]
+    n = state["doc_len"].shape[1] - 1
+    offsets = torch.from_numpy(np.linspace(0, NB, V + 1).astype(np.int32)).to(device)
+    docs = tiled_on(device, seeded_block(Pn * NB * B, integer=True, seed=seed, high=n + 1),
+                    (Pn, NB, B), torch.int32, torch)
+    tf = tiled_on(device, seeded_block(Pn * NB * B, integer=True, seed=seed + 1) + 1,
+                  (Pn, NB, B), torch.uint8, torch)
+    rng = np.random.default_rng(seed + 2)
+    host = {"block_max": rng.uniform(0.5, 4.0, (Pn, NB)).astype(np.float32),
+            "doc_len": rng.uniform(5.0, 60.0, (Pn, n + 1)).astype(np.float32),
+            "idf": rng.uniform(0.1, 5.0, V).astype(np.float32),
+            "params": np.array([0.9, 0.4, 30.0], np.float32)}
+    state = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    state.update(term_offsets=offsets.expand(Pn, V + 1).contiguous(), block_docs=docs,
+                 block_tf=torch.where(docs < n, tf, 0).to(torch.uint8))
+    Q, T = tids.shape
+    return (state, torch.from_numpy(rng.integers(0, V, (Q, T)).astype(np.int32)).to(device),
+            torch.from_numpy(rng.integers(1, 3, (Q, T)).astype(np.float32)).to(device))
+
+
+def launcher_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 15c's rank mesh: a gloo process group over a
+    FileStore in ``tmp``, then ``launch.train`` with CELLS_LAUNCHER on
+    ``--mesh host`` — a (world, 1) rank mesh on the card (the sharded step:
+    the gradient and metrics averaged over ``data`` by gloo, the clip over
+    the whole reduced gradient, AdamW on the rank's blocks)."""
+    import datetime
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train.main(CELLS_LAUNCHER + ["--mesh", "host", "--ckpt-dir",
+                                              str(Path(tmp) / "ranks"), "--metrics-out",
+                                              str(Path(tmp) / f"rank{rank}.json")])
+        require(rc == 0, f"launch.train on rank {rank}: rc {rc}")
+    finally:
+        dist.destroy_process_group()
+
+
+def launcher_meshes(torch, tmp) -> dict:
+    """Phase 15c: ``launch.train`` with CELLS_LAUNCHER on ``--mesh prod``
+    (the (16, 16) production mesh stacked on the card: the host step once
+    the batch and state split over it) and ``--mesh host``: the same loss
+    bits, step for step; then ``--mesh host`` in CELLS_RANKS processes of
+    a gloo group, each on the card (the rank mesh's sharded step), against
+    the host step: each step's loss within 1e-4 and grad norm within 1e-4
+    of itself (gloo sums the ranks' gradients in its own order)."""
+    import io
+
+    import torch.multiprocessing as mp
+    from repro_torch.launch import train
+    history, walls = {}, {}
+    # the ranks start first and run beside the two stacked runs (their
+    # start-up is most of their time); the card and the host are shared
+    t_ranks = time.perf_counter()
+    ranks = mp.start_processes(launcher_rank, args=(CELLS_RANKS, str(tmp)), nprocs=CELLS_RANKS,
+                               join=False, start_method="spawn")
+    try:
+        for mesh in ("prod", "host"):
+            out = tmp / f"launcher_{mesh}.json"
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train.main(CELLS_LAUNCHER + ["--mesh", mesh, "--ckpt-dir",
+                                                  str(tmp / mesh), "--metrics-out", str(out)])
+            walls[mesh] = time.perf_counter() - t0
+            require(rc == 0, f"launch.train --mesh {mesh}: rc {rc}")
+            history[mesh] = json.loads(out.read_text())["history"]
+        while not ranks.join():
+            pass
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    walls["ranks"] = time.perf_counter() - t_ranks
+    losses = {mesh: [h["loss"] for h in hist] for mesh, hist in history.items()}
+    require(losses["prod"] == losses["host"], f"--mesh prod losses {losses['prod']} != --mesh "
+                                              f"host {losses['host']}")
+    print(f"[15c] python -m repro_torch.launch.train {' '.join(CELLS_LAUNCHER)}: --mesh prod "
+          f"(16 x 16 stacked) == --mesh host, {len(losses['host'])} losses bit for bit "
+          f"({losses['host'][0]:.6f} -> {losses['host'][-1]:.6f}); {walls['prod']:.1f} s and "
+          f"{walls['host']:.1f} s", flush=True)
+    loss_err = norm_err = 0.0
+    for r in range(CELLS_RANKS):
+        got = json.loads((tmp / f"rank{r}.json").read_text())["history"]
+        require(len(got) == len(history["host"]), f"rank {r}: {len(got)} steps")
+        for a, b in zip(got, history["host"]):
+            loss_err = max(loss_err, abs(a["loss"] - b["loss"]))
+            norm_err = max(norm_err, abs(a["grad_norm"] / b["grad_norm"] - 1))
+    require(loss_err <= 1e-4 and norm_err <= 1e-4,
+            f"--mesh host over {CELLS_RANKS} ranks: loss off by {loss_err}, grad norm by "
+            f"{norm_err} of itself (bounds 1e-4)")
+    print(f"[15c] --mesh host over {CELLS_RANKS} gloo ranks on the card (a ({CELLS_RANKS}, 1) "
+          f"rank mesh) == the host step to {loss_err:.3g} in the loss and {norm_err:.3g} of the "
+          f"grad norm (bounds 1e-4), {len(history['host'])} steps, grad norm "
+          f"{history['host'][0]['grad_norm']:.4f} at the first (clip 1.0); "
+          f"{walls['ranks']:.1f} s from their start, beside the two stacked runs", flush=True)
+    return dict(losses=losses["host"], walls_s=walls, ranks=CELLS_RANKS,
+                ranks_loss_err=loss_err, ranks_norm_rel_err=norm_err)
+
+
+def cells_phase(kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
+    """Phase 15: (a) the dry run of every full cell on both production
+    meshes, in worker processes while (b) runs the cells that fit on the
+    card, (c) the launcher's production mesh against its host mesh, and
+    its host mesh over a group of ranks against the host step."""
+    import os
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = DryRun(jobs=max(1, min(CELLS_JOBS, (os.cpu_count() or 2) - 1)))
+    results, launches = cells_on_card(dry, kern, torch, device, seed)
+    t_b = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as tmp:
+        t_c = time.perf_counter()
+        reset(kern)
+        launcher = launcher_meshes(torch, Path(tmp))
+        launches["phase 15 launcher"] = counted(kern, "phase 15 launcher", {})
+        t_c = time.perf_counter() - t_c
+    _, summary = dry.result()
+    summary.update(cards_s=t_b, launcher_s=t_c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[15] phase 15 took {seconds:.1f} s (dry run {summary['wall_s']:.1f} beside the "
+          f"cells on the card {t_b:.1f}, launcher {t_c:.1f})", flush=True)
+    return dict(dry_run=summary, cells=results, launcher=launcher, seconds=seconds), launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=500_000,
@@ -3339,6 +3791,12 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1, 2 and 14 only (a shake-out of the training path; prints no "
                          "ok line)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the first numpy seed of phase 15's cell inputs (each leaf draws the "
+                         "next)")
+    ap.add_argument("--cells-only", action="store_true",
+                    help="phases 1, 2 and 15 only (a shake-out of the dry run, the cells on the "
+                         "card and the launcher's production mesh; prints no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3454,6 +3912,12 @@ def main() -> int:
         print(smi, flush=True)
         print("chip_smoke: --train-only, a partial run", flush=True)
         return 0
+    if args.cells_only:
+        cells_out, _ = cells_phase(kern, torch, seed=args.seed)
+        print(json.dumps({"cells": cells_out}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --cells-only, a partial run", flush=True)
+        return 0
     if args.moe_only:
         moe = {name: moe_phase(kern, ref, torch, name) for name in MOE_RUNS}
         print(json.dumps({"moe_only": {name: moe_entry(r) for name, r in moe.items()}}),
@@ -3557,6 +4021,13 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(f"[14] phases 1-14 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 15. the cells: the dry run on both production meshes beside the cells
+    # that fit on the card, then the launcher's production mesh
+    cells_out, cell_launches = cells_phase(kern, torch, seed=args.seed)
+    launches.update(cell_launches)
+    print(json.dumps({"cells": cells_out}), flush=True)
+    print(f"[15] phases 1-15 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
     Q = len(queries)
     meta = {
         "K3": ("bm25_block_impacts", "src/repro_torch/kernels/csrc/bm25_block.cu",
@@ -3614,6 +4085,11 @@ def main() -> int:
     line["kernels"][-1]["moe"] = {name: moe_entry(r) for name, r in moe.items()}
     line["kernels"][0]["serve_launcher"] = serve_out
     line["kernels"].append(k6_line(results, rs_launches, k6_err))
+    names = {"bm25_block_impacts": "K3", "topk": "K2", "bm25_pruned_topk": "K1",
+             "dot_topk_batch": "K4", "flash_attention": "K5", "embedding_bag": "K6"}
+    for entry in line["kernels"]:
+        k = names[entry["name"]]
+        entry["launches_phase15"] = {route: c[k] for route, c in cell_launches.items() if c[k]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,6 @@ FFN (12288); here all 60 layers are MoE.
 Dispatch: the explicit expert-parallel path (``moe_impl="ep"``) on the
 ambient mesh. The reduced config takes the global dispatch and needs no
 mesh.
-
-``rules`` returns the reference's rules; ``cells`` raises until the cell
-builders land (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -58,4 +55,6 @@ def rules(**kw):
 
 
 def cells(rules_, *, reduced: bool = False):
-    return lm_cells(ARCH_ID, None, rules_, reduced=reduced)
+    cfg = reduced_config() if reduced else full_config(
+        ep_batch_axes=tuple(rules_.batch), unroll=True)
+    return lm_cells(ARCH_ID, cfg, rules_, reduced=reduced)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.cells import gnn_cells
+from repro_torch.configs.cells import GNN_SHAPES, GNN_SHAPES_REDUCED, gnn_cells
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.parallel.sharding import gnn_rules
 
@@ -36,4 +36,11 @@ def rules(**kw):
 
 
 def cells(rules_, *, reduced: bool = False):
-    return gnn_cells(ARCH_ID, None, rules_, reduced=reduced)
+    # one config per shape (each graph regime has its own feature dim)
+    shapes = GNN_SHAPES_REDUCED if reduced else GNN_SHAPES
+    out = {}
+    for sname, sh in shapes.items():
+        cfg = (reduced_config(d_feat=sh["d_feat"]) if reduced
+               else full_config(d_feat=sh["d_feat"], unroll=True))
+        out[sname] = gnn_cells(ARCH_ID, cfg, rules_, reduced=reduced)[sname]
+    return out

@@ -39,4 +39,5 @@ def rules(**kw):
 
 
 def cells(rules_, *, reduced: bool = False):
-    return lm_cells(ARCH_ID, None, rules_, reduced=reduced)
+    cfg = reduced_config() if reduced else full_config(unroll=True)
+    return lm_cells(ARCH_ID, cfg, rules_, reduced=reduced)

@@ -3,9 +3,6 @@ d_ff(expert)=1024, vocab 50304. ~6.9B total / ~1.3B active params.
 
 Shipped dispatch: explicit expert parallelism (``moe_impl="ep"``), which
 runs on the ambient mesh (``repro_torch.parallel.compat.use_mesh``).
-
-``rules`` returns the reference's rules; ``cells`` raises until the cell
-builders land (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -48,4 +45,6 @@ def rules(**kw):
 
 
 def cells(rules_, *, reduced: bool = False):
-    return lm_cells(ARCH_ID, None, rules_, reduced=reduced)
+    cfg = reduced_config() if reduced else full_config(
+        ep_batch_axes=tuple(rules_.batch), unroll=True)
+    return lm_cells(ARCH_ID, cfg, rules_, reduced=reduced)

@@ -5,7 +5,10 @@ There the backend chose Pallas interpret mode. Here the device of the
 tensors decides, and nothing else:
 
 * a CUDA tensor launches the hand kernel, or raises — never a silent twin;
-* a CPU tensor takes the plain PyTorch twin in :mod:`repro_torch.kernels.ref`.
+* a CPU tensor takes the plain PyTorch twin in :mod:`repro_torch.kernels.ref`;
+* a meta tensor (the dry run's abstract trace) computes nothing: the
+  wrapper returns empty meta outputs by the shape rule written beside it
+  and records the call's operations and bytes (:func:`record_costs`).
 
 The kernels are CUDA C++ under ``csrc/``, one source per kernel, each with
 a plain C entry point that launches on the caller's stream and returns
@@ -18,7 +21,10 @@ is imported.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -73,18 +79,61 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def use_kernel(*tensors: torch.Tensor) -> bool:
-    """True → launch the hand kernel (CUDA tensors); False → the plain twin
-    (CPU tensors). Mixed or other devices raise."""
+def route(*tensors: torch.Tensor) -> str:
+    """Where a wrapper's call goes, from its tensors' one device: ``"cuda"``
+    launches the hand kernel, ``"cpu"`` takes the plain twin, ``"meta"``
+    computes nothing — the wrapper returns empty meta outputs of the
+    kernel's shapes and dtypes and records the call's cost
+    (:func:`meta_result`), for the dry run's abstract trace. Mixed or other
+    devices raise."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel inputs on several devices: {sorted(map(str, devices))}")
     (device,) = devices
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
+    if device.type in ("cuda", "cpu", "meta"):
+        return device.type
     raise ValueError(f"no kernel and no twin for device {device}")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCost:
+    """One kernel call on meta tensors: its work under the bound's rule
+    (each input read once, each output written once; the operations its
+    inputs need)."""
+
+    name: str
+    flops: float
+    bytes: float
+
+
+_COSTS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_kernel_costs",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def record_costs():
+    """Collect a :class:`KernelCost` for every kernel call on meta tensors
+    inside the block, in call order, into the list it yields."""
+    log: list[KernelCost] = []
+    token = _COSTS.set(log)
+    try:
+        yield log
+    finally:
+        _COSTS.reset(token)
+
+
+def meta_result(name: str, outputs, *, flops: float, nbytes: float):
+    """A wrapper's answer on meta tensors: ``outputs`` (empty meta tensors of
+    the kernel's shapes and dtypes) as they are, the call's cost recorded
+    when :func:`record_costs` is open."""
+    log = _COSTS.get()
+    if log is not None:
+        log.append(KernelCost(name, float(flops), float(nbytes)))
+    return outputs
+
+
+def meta_empty(*shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -190,7 +239,12 @@ def stream(t: torch.Tensor) -> int:
 def f32(x) -> float:
     """A scalar parameter as the float32 value the kernels compute with
     (0-d tensors are read back to the host once; a Python number takes no
-    tensor, which costs a warm call several microseconds a parameter)."""
+    tensor, which costs a warm call several microseconds a parameter). A
+    meta tensor holds no value: it reads as NaN, which no kernel ever
+    receives, since a wrapper on meta tensors launches nothing."""
     if isinstance(x, (float, int)):
         return struct.unpack("f", struct.pack("f", x))[0]
-    return float(torch.as_tensor(x, dtype=torch.float32).item())
+    x = torch.as_tensor(x, dtype=torch.float32)
+    if x.device.type == "meta":
+        return float("nan")
+    return float(x.item())

@@ -18,6 +18,10 @@ import torch
 from repro_torch.kernels import backend, ref
 
 MAX_POSTINGS = 2**31 - 1     # the kernel indexes postings in 32 bits
+OPS_PER_POSTING = 7          # the impact's multiplies, adds and division
+
+# Shape rule on meta tensors, both entry points: (..., T, M, B) → the same
+# shape in f32. Cost: each input read once, the impacts written once.
 
 
 def _launch_shape(tf: torch.Tensor, idf: torch.Tensor, name: str) -> tuple[int, int]:
@@ -34,7 +38,12 @@ def bm25_block_scores(tf: torch.Tensor, dl: torch.Tensor, idf: torch.Tensor,
                       k1, b, avgdl) -> torch.Tensor:
     """tf (..., T, M, B) uint8, dl (..., T, M, B) f32, idf (..., T) f32 →
     (..., T, M, B) f32."""
-    if not backend.use_kernel(tf, dl, idf):
+    where = backend.route(tf, dl, idf)
+    if where == "meta":
+        return backend.meta_result(
+            "bm25_block_scores", backend.meta_empty(*tf.shape, dtype=torch.float32),
+            flops=OPS_PER_POSTING * tf.numel(), nbytes=tf.numel() * 9 + idf.numel() * 4)
+    if where == "cpu":
         return ref.bm25_block_scores_ref(tf, dl, idf, k1, b, avgdl)
     backend.refuse_grad("bm25_block_scores", dl, idf)
     if tf.dtype != torch.uint8 or dl.dtype != torch.float32 or idf.dtype != torch.float32:
@@ -65,7 +74,17 @@ def bm25_block_impacts(tf: torch.Tensor, docs: torch.Tensor, valid: torch.Tensor
     idf (..., T) f32 → (..., T, M, B) f32: the impact with
     ``dl = doc_len[min(doc, n_docs)]`` where the row is valid, the doc live
     and tf ≠ 0, else +0.0 — ``ref.bm25_block_impacts_ref``'s bits."""
-    if not backend.use_kernel(tf, docs, valid, doc_len, idf):
+    where = backend.route(tf, docs, valid, doc_len, idf)
+    if where == "meta":
+        # doc_len is gathered: a posting reads its doc's length once, and
+        # no more than the whole array
+        n = tf.numel()
+        return backend.meta_result(
+            "bm25_block_impacts", backend.meta_empty(*tf.shape, dtype=torch.float32),
+            flops=OPS_PER_POSTING * n,
+            nbytes=n * (1 + 4 + 4) + min(n, doc_len.numel()) * 4 + valid.numel()
+            + idf.numel() * 4)
+    if where == "cpu":
         return ref.bm25_block_impacts_ref(tf, docs, valid, doc_len, idf, k1, b, avgdl, n_docs)
     backend.refuse_grad("bm25_block_impacts", doc_len, idf)
     want = (torch.uint8, torch.int32, torch.bool, torch.float32, torch.float32)

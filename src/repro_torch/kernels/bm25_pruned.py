@@ -32,6 +32,7 @@ same arithmetic order as the kernels.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -107,7 +108,10 @@ def bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
     blocks scored).
     """
     tensors = (tf, dl, docs, idf_q, ub, valid)
-    if not backend.use_kernel(*tensors):
+    where = backend.route(*tensors)
+    if where == "meta":
+        return _meta(tf, k)
+    if where == "cpu":
         return ref.bm25_pruned_topk_ref(*tensors, k1, b, avgdl, k=k, n_docs=n_docs)
     backend.refuse_grad("bm25_pruned_topk", *tensors)
     single = tf.dim() == 3
@@ -148,6 +152,23 @@ def bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid, k1, b, avgdl, *,
     if single:
         return vals[0], ids[0], touched[0]
     return vals, ids, touched
+
+
+def _meta(tf: torch.Tensor, k: int):
+    """Shape rule: (…, T, M, B) → (…, k) f32 vals, (…, k) int32 ids, (…,)
+    int32 touched. Cost: what pruning keeps depends on the data, which meta
+    tensors lack, so every posting counts as kept (an upper bound): its tf,
+    dl and doc read (9 B), 8 operations; the per-block inputs and the
+    outputs once."""
+    lead = tuple(tf.shape[:-3])
+    Q = math.prod(lead)
+    T, M, B = tf.shape[-3:]
+    postings = tf.numel()
+    return backend.meta_result(
+        "bm25_pruned_topk", (backend.meta_empty(*lead, k, dtype=torch.float32),
+                             backend.meta_empty(*lead, k, dtype=torch.int32),
+                             backend.meta_empty(*lead, dtype=torch.int32)),
+        flops=8 * postings, nbytes=postings * 9 + Q * T * (4 + M * 5) + Q * (k * 8 + 4))
 
 
 @functools.lru_cache(maxsize=None)

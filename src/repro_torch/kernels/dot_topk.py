@@ -40,7 +40,10 @@ def dot_topk_batch(queries: torch.Tensor, cands: torch.Tensor, k: int):
     device."""
     if k > MAX_K:
         raise ValueError(f"k={k} exceeds the {MAX_K} rows of one chunk")
-    if not backend.use_kernel(queries, cands):
+    where = backend.route(queries, cands)
+    if where == "meta":
+        return _meta(queries, cands, k)
+    if where == "cpu":
         return ref.dot_topk_batch_ref(queries, cands, k)
     backend.refuse_grad("dot_topk_batch", queries, cands)
     if queries.dtype != torch.float32 or cands.dtype != torch.float32:
@@ -72,6 +75,17 @@ def dot_topk_batch(queries: torch.Tensor, cands: torch.Tensor, k: int):
 
 
 dot_topk_batch.launches = 0
+
+
+def _meta(queries: torch.Tensor, cands: torch.Tensor, k: int):
+    """Shape rule: (Q, D) × (N, D) → (Q, k) f32 vals, (Q, k) int32 ids.
+    Cost: the rows and queries read once, k pairs a query written; a
+    multiply and an add a (query, row, d)."""
+    (Q, D), N = queries.shape, cands.shape[0]
+    return backend.meta_result(
+        "dot_topk_batch", (backend.meta_empty(Q, k, dtype=torch.float32),
+                           backend.meta_empty(Q, k, dtype=torch.int32)),
+        flops=2 * Q * N * D, nbytes=(N * D + Q * D) * 4 + Q * k * 8)
 
 
 def dot_topk(query: torch.Tensor, cands: torch.Tensor, k: int):

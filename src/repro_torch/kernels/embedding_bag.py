@@ -32,7 +32,10 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
             or weights.dtype != torch.float32):
         raise ValueError(f"embedding_bag takes a f32 or bf16 table, int32 ids and f32 "
                          f"weights, got {table.dtype}/{idx.dtype}/{weights.dtype}")
-    if not backend.use_kernel(table, idx, weights):
+    where = backend.route(table, idx, weights)
+    if where == "meta":
+        return _meta(table, idx)
+    if where == "cpu":
         return ref.embedding_bag_ref(table, idx, weights)
     backend.refuse_grad("embedding_bag", table, weights)
     B, L = idx.shape
@@ -51,6 +54,16 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
     backend.check(lib, err, "embedding_bag_launch")
     embedding_bag.launches += 1
     return out
+
+
+def _meta(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Shape rule: (V, D) table, (B, L) ids → (B, D) f32. Cost: ids and
+    weights read once, each slot's row read once (at most the whole
+    table), the bags written; a multiply and an add a (slot, d)."""
+    (B, L), (V, D) = idx.shape, table.shape
+    rows = min(B * L, V) * D * table.element_size()
+    return backend.meta_result("embedding_bag", backend.meta_empty(B, D, dtype=torch.float32),
+                               flops=2 * B * L * D, nbytes=B * L * 8 + rows + B * D * 4)
 
 
 embedding_bag.launches = 0

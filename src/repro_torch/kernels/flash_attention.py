@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import backend, ref
@@ -86,7 +87,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window={window} must be positive")
     if kv_len is not None:
         kv_len = int(kv_len)
-    if not backend.use_kernel(q, k, v):
+    where = backend.route(q, k, v)
+    if where == "meta":
+        return _meta(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    if where == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len,
                                        sm_scale=sm_scale)
     backend.refuse_grad("flash_attention", q, k, v)
@@ -133,6 +137,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.launches += 1
     flash_attention.launches_by[kind] += 1
     return out
+
+
+def visible_pairs(Sq: int, Skv: int, *, causal: bool, window: "int | None",
+                  kv_len: "int | None") -> int:
+    """The (query, key) pairs one (batch, head) attends: the queries sit at
+    the end of the kv axis; causal, the window and ``kv_len`` cut the keys."""
+    kv_end = Skv if kv_len is None else max(0, min(kv_len, Skv))
+    pos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(pos + 1, kv_end) if causal else np.full(Sq, kv_end)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _meta(q, k, v, *, causal, window, kv_len) -> torch.Tensor:
+    """Shape rule: (B, Hq, Sq, ·) q, (…, Dv) v → (B, Hq, Sq, Dv) in q's
+    dtype. Cost: q, k, v read and the output written once; a multiply and
+    an add a (visible pair, d) for QKᵀ and for PV."""
+    B, Hq, Sq, D = q.shape
+    Dv = v.shape[-1]
+    pairs = B * Hq * visible_pairs(Sq, k.shape[2], causal=causal, window=window, kv_len=kv_len)
+    size = q.element_size()
+    return backend.meta_result(
+        "flash_attention", backend.meta_empty(B, Hq, Sq, Dv, dtype=q.dtype),
+        flops=2 * (D + Dv) * pairs,
+        nbytes=size * (q.numel() + k.numel() + v.numel() + B * Hq * Sq * Dv))
 
 
 flash_attention.launches = 0

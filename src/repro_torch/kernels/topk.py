@@ -55,7 +55,10 @@ def topk(scores: torch.Tensor, k: int, *, chunk: int = DEFAULT_CHUNK):
     descending. Slots past the live elements (k > number of finite scores)
     return (-inf, N). Rows may be strided (``acc[:, :n_docs]``) as long as
     each row is contiguous."""
-    if not backend.use_kernel(scores):
+    where = backend.route(scores)
+    if where == "meta":
+        return _meta(scores, k)
+    if where == "cpu":
         return ref.topk_ref(scores, k)
     backend.refuse_grad("topk", scores)
     single = scores.dim() == 1
@@ -72,6 +75,19 @@ def topk(scores: torch.Tensor, k: int, *, chunk: int = DEFAULT_CHUNK):
     if single:
         return vals[0], ids[0]
     return vals, ids
+
+
+def _meta(scores: torch.Tensor, k: int):
+    """Shape rule: (..., N) f32 → (..., k) f32 vals, (..., k) int32 ids,
+    whatever N (k > N pads). Cost: the N scores of each row read and k
+    (value, id) pairs written; one comparison a score."""
+    N = scores.shape[-1]
+    rows = scores.numel() // max(N, 1)
+    lead = tuple(scores.shape[:-1])
+    return backend.meta_result(
+        "topk", (backend.meta_empty(*lead, k, dtype=torch.float32),
+                 backend.meta_empty(*lead, k, dtype=torch.int32)),
+        flops=scores.numel(), nbytes=scores.numel() * 4 + rows * k * 8)
 
 
 def merge(vals: torch.Tensor, ids: torch.Tensor, k: int, n_live: int, *,

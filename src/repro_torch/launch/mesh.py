@@ -6,8 +6,9 @@ device. The production topology is the reference's: ``(data=16,
 model=16)`` single-pod, ``(pod=2, data=16, model=16)`` multi-pod, ``pod``
 an outer data-parallel axis. On one card :func:`make_production_mesh` is a
 :class:`~repro_torch.parallel.compat.StackedMesh` of that shape: every
-partition on the card, as the mesh search path runs it. Training on it
-waits for ROADMAP Queue 1 item 10 (``launch.train --mesh prod``).
+partition on the card, as the mesh search path runs it, and as
+``launch.train --mesh prod`` trains on it (the host step); on ``meta`` it is
+the dry run's mesh.
 """
 
 from __future__ import annotations

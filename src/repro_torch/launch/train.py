@@ -10,13 +10,21 @@ hydrates from (paper §3 batch-rebuild → refresh).
     PYTHONPATH=src python -m repro_torch.launch.train --preset reduced --device cpu
 
 The reference's flags and output lines, and one more flag: ``--device``
-(default: the card, raising without one; ``cpu`` on request). ``--mesh
-host`` trains on that one device; ``--mesh prod`` and ``prod-multipod``
-(sharded training) wait for ROADMAP Queue 1 item 10 and raise. The initial
-parameters come from ``init_params`` with a ``torch.Generator`` seeded 0;
-checkpoints go to a ``FilesystemBackend`` ObjectStore under ``--ckpt-dir``
-(default: ``repro_torch_ckpt`` in the temporary directory), and a run
-resumes from the latest one there.
+(default: the card, raising without one; ``cpu`` on request). The step is
+:func:`~repro_torch.train.steps.make_sharded_train_step` over the mesh
+that ``--mesh`` names, with the arch's rules (``with_pod()`` on the
+multi-pod mesh): ``prod`` and ``prod-multipod`` the production meshes,
+(16, 16) and (2, 16, 16), stacked on the device (the host step, its bits,
+after the batch and state are checked to split over them: batch 16 does
+not split over pod × data = 32 and is refused, as the reference's jit
+refuses it); ``host`` a rank mesh (world, 1) over an initialized process
+group — each rank holds its blocks of the state and checkpoints them under
+its own name — else (1, 1) stacked. The initial parameters come from
+``init_params`` with a ``torch.Generator`` seeded 0; checkpoints go to a
+``FilesystemBackend`` ObjectStore under ``--ckpt-dir`` (default:
+``repro_torch_ckpt`` in the temporary directory), and a run resumes from
+the latest one there. ``--metrics-out`` writes each step's loss and grad
+norm.
 """
 
 from __future__ import annotations
@@ -33,16 +41,17 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointConfig, CheckpointManager
 from repro_torch.configs import get_arch
-from repro_torch.configs.cells import CELLS_PENDING, train_state_specs
+from repro_torch.configs.cells import train_state_specs
 from repro_torch.core.object_store import FilesystemBackend, ObjectStore
 from repro_torch.data.lm import LMDataConfig, LMTokenStream
 from repro_torch.ft.faults import FailureInjector, StragglerMonitor, run_with_restarts
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.common import init_params
-from repro_torch.parallel.sharding import tree_named
+from repro_torch.parallel.compat import RankMesh
+from repro_torch.parallel.sharding import place_tree
 from repro_torch.train.optim import OptConfig
-from repro_torch.train.steps import init_train_state, make_train_step
+from repro_torch.train.steps import init_train_state, make_sharded_train_step
 
 
 def _preset_100m(arch_mod, vocab: int = 8192):
@@ -70,9 +79,18 @@ def build_lm_training(arch: str, preset: str, batch: int, seq: int,
     defs = lm_param_defs(cfg)
     opt_cfg = OptConfig(lr=lr, warmup_steps=min(100, steps // 10 + 1),
                         total_steps=steps)
-    step_fn = make_train_step(lambda p, b: lm_loss(p, b, cfg), opt_cfg)
     data = LMTokenStream(LMDataConfig(vocab=cfg.vocab, batch=batch, seq=seq))
-    return cfg, defs, step_fn, data
+    return cfg, defs, (lambda p, b: lm_loss(p, b, cfg)), opt_cfg, data
+
+
+def make_mesh(kind: str, device):
+    """``--mesh``: the production meshes stacked on ``device``; ``host`` a
+    rank mesh (world, 1) when a process group is up, else (1, 1) stacked."""
+    if kind == "host":
+        import torch.distributed as dist
+        n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        return make_host_mesh((n, 1), device=device)
+    return make_production_mesh(multi_pod=kind == "prod-multipod", device=device)
 
 
 def main(argv=None) -> int:
@@ -101,26 +119,31 @@ def main(argv=None) -> int:
     if mod.FAMILY != "lm":
         raise SystemExit("train driver currently drives LM archs; "
                          "see examples/ for GNN/recsys training")
-    if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh}: sharded training and "
-                                  f"{CELLS_PENDING}")
     device = resolve_device(args.device)
 
-    cfg, defs, step_fn, data = build_lm_training(
+    cfg, defs, loss_fn, opt_cfg, data = build_lm_training(
         args.arch, args.preset, args.batch, args.seq, args.steps, args.lr)
-    mesh = make_host_mesh((1, 1), device=device)
-    shardings = tree_named(mesh, train_state_specs(defs, mod.rules()))
+    mesh = make_mesh(args.mesh, device)
+    rules = mod.rules()
+    if "pod" in mesh.axis_names:
+        rules = rules.with_pod()
+    sspecs = train_state_specs(defs, rules)
+    bspec = {"tokens": rules.batch_spec(None), "labels": rules.batch_spec(None)}
+    step_fn = make_sharded_train_step(loss_fn, opt_cfg, mesh, sspecs, bspec)
 
+    name = f"{args.arch}-{args.preset}"
+    if isinstance(mesh, RankMesh) and mesh.size > 1:     # each rank keeps its blocks
+        import torch.distributed as dist
+        name += f"-rank{dist.get_rank()}"
     store = ObjectStore(FilesystemBackend(args.ckpt_dir))
-    ckpt = CheckpointManager(
-        store, name=f"{args.arch}-{args.preset}",
-        config=CheckpointConfig(every_steps=args.ckpt_every))
+    ckpt = CheckpointManager(store, name=name,
+                             config=CheckpointConfig(every_steps=args.ckpt_every))
 
     def init_fn():
         params = init_params(defs, torch.Generator().manual_seed(0), device)
-        return init_train_state(params)
+        return place_tree(init_train_state(params), sspecs, mesh)
 
-    state, start = ckpt.restore_or_init(init_fn, shardings=shardings)
+    state, start = ckpt.restore_or_init(init_fn)
     if start:
         print(f"resumed from checkpoint step {start}")
 
@@ -131,14 +154,16 @@ def main(argv=None) -> int:
 
     def one_step(state, step):
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, data.batch(step))
+        batch = place_tree(data.batch(step), bspec, mesh)
+        state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
         monitor.record(step, dt)
         if step % args.log_every == 0:
             print(f"step {step:5d} loss {loss:.4f} "
                   f"({dt * 1e3:.0f} ms/step)")
-        history.append({"step": step, "loss": loss, "sec": dt})
+        history.append({"step": step, "loss": loss,
+                        "grad_norm": float(metrics["grad_norm"]), "sec": dt})
         return state
 
     state, stats = run_with_restarts(

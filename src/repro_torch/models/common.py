@@ -15,6 +15,7 @@ seed, so parity tests carry the reference's own initial values across
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 from typing import Any
@@ -219,6 +220,11 @@ def remat(body, policy: "str | None"):
     kw = {} if policy == "nothing_saveable" else {"context_fn": _save_ops(_SAVED_DOTS[policy])}
 
     def run(*args):
-        return checkpoint(body, *args, use_reentrant=False, **kw)
+        # the recompute runs in the backward pass, which autograd runs on a
+        # thread of its own for a CUDA tensor: it runs in a copy of the
+        # forward's context, so it sees what the forward saw (the ambient
+        # mesh of an expert-parallel MoE layer)
+        ctx = contextvars.copy_context()
+        return checkpoint(lambda *a: ctx.run(body, *a), *args, use_reentrant=False, **kw)
 
     return run

@@ -105,6 +105,10 @@ def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
     else:
         idx = torch.as_tensor(idx, device=table.device)
         shape = idx.shape
+        if not (torch.is_grad_enabled() and table.requires_grad):
+            # no backward to plan for: the forward's gather alone
+            return table.index_select(0, idx.reshape(-1).long()).reshape(
+                *shape, *table.shape[1:])
     plan = _plan(idx, table.shape[0])
     return _Gather.apply(table, plan).reshape(*shape, *table.shape[1:])
 

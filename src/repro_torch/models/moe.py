@@ -15,6 +15,11 @@ card, its twin on the CPU — whose ties go to the lowest expert id, as in
 ``lax.top_k``. The ranks, the slot table with its dump column and the drops
 are integer work, exact. The per-expert products are ``torch.bmm``.
 
+The dispatch's and the combine's row gathers are
+:func:`~repro_torch.models.gather.gather_rows`: the same rows forward (an
+``index_select``), and a backward that sums the rows sharing a source in a
+fixed order, so a train step through the MoE gives the same bits every run.
+
 The combine is where this differs in form from the reference, which
 scatter-adds every slot's weighted output into ``y``. ``index_add_`` on the
 card adds with float atomics, and a token sits in up to K slots, so its
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.topk import topk
 from repro_torch.models.common import ParamDef, dense
+from repro_torch.models.gather import gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,8 +161,11 @@ def _routed(xt, wg, wi, wo, gate, expert, lo, C: int):
     E_loc = wg.shape[1]
     keep, slot, slots = _dispatch(expert, lo, E_loc, C)
     part = torch.arange(L, device=xt.device)
+    # the row gathers go through gather_rows: the same rows forward, and a
+    # backward that sums each row's gradients in a fixed order (no atomics)
     xpad = torch.cat([xt, xt.new_zeros(L, 1, d)], dim=1)
-    xe = xpad[part[:, None, None], slots]                  # (L, E_loc, C, d)
+    xe = gather_rows(xpad.reshape(L * (T + 1), d),
+                     slots + (part * (T + 1))[:, None, None])   # (L, E_loc, C, d)
     ye = _expert_ffn(wg.reshape(L * E_loc, *wg.shape[2:]), wi.reshape(L * E_loc, *wi.shape[2:]),
                      wo.reshape(L * E_loc, *wo.shape[2:]), xe.reshape(L * E_loc, C, d))
     ye = torch.cat([ye.reshape(L, E_loc * C, d), ye.new_zeros(L, 1, d)], dim=1)
@@ -165,7 +174,10 @@ def _routed(xt, wg, wi, wo, gate, expert, lo, C: int):
     # reads the zero dump row at gate 0: it adds +0.0, which leaves a sum
     # begun at +0.0 as it was)
     order = slot.argsort(dim=-1, stable=True)
-    rows = ye[part[:, None, None], slot.gather(2, order)] * g.gather(2, order)[..., None]
+    n_rows = E_loc * C + 1
+    rows = gather_rows(ye.reshape(L * n_rows, d),
+                       slot.gather(2, order) + (part * n_rows)[:, None, None])
+    rows = rows * g.gather(2, order)[..., None]
     y = ye.new_zeros(L, T, d)
     for k in range(expert.shape[-1]):
         y = y + rows[:, :, k]

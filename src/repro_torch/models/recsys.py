@@ -54,10 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.partition import merge_topk
-from repro_torch.kernels import topk as k2
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.kernels.dot_topk import dot_topk
-from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.models.attention import attention
 from repro_torch.models.common import (ParamDef, count_params, dense, layer_norm, mlp_stack,
                                        mlp_stack_defs, tree_leaves)
@@ -197,7 +195,7 @@ def _fm(params, batch, cfg: RecsysConfig, dev, train: bool):
     if train:                                                 # the reference's take + sum
         lin = torch.sum(gather_rows(params["linear"], ids)[..., 0], dim=1)
     else:
-        lin = embedding_bag(params["linear"], ids, _ones(ids))[:, 0]
+        lin = kops.embedding_bag(params["linear"], ids, _ones(ids))[:, 0]
     # 2-way term via the O(nk) identity: ½[(Σv)² − Σv²] summed over dims
     s = torch.sum(v, dim=1)                                   # (B,D)
     pair = 0.5 * torch.sum(s * s - torch.sum(v * v, dim=1), dim=-1)
@@ -391,7 +389,7 @@ def bert4rec_serve_topk(params, seq, cfg: RecsysConfig, *, k: int = 100,
             v, i = _sharded_vocab_topk(x, params["item_emb"], params["out_b"], k)
         else:
             logits = x @ params["item_emb"].T + params["out_b"]
-            v, i = k2.topk(logits.float(), k)
+            v, i = kops.topk(logits.float(), k)
         vals.append(v)
         ids.append(i)
     return torch.cat(vals)[:B], torch.cat(ids)[:B]
@@ -410,7 +408,7 @@ def _sharded_vocab_topk(x, emb, bias, k: int, *, axis: str = "model"):
         # x is replicated: its one copy meets every shard held here in one
         # GEMM, (chunk, L·V_loc), whose row b holds the L shards' logits in turn
         logits = xl[0] @ el.reshape(L * v_loc, d).T + bl.reshape(-1)
-        lv, li = k2.topk(logits.float().reshape(-1, v_loc), k)       # rows (b, shard)
+        lv, li = kops.topk(logits.float().reshape(-1, v_loc), k)       # rows (b, shard)
         lv = lv.view(-1, L, k).transpose(0, 1)                       # (L, chunk, k)
         li = li.view(-1, L, k).transpose(0, 1) + (j * v_loc).to(torch.int32).view(L, 1, 1)
         return lv, li
@@ -431,7 +429,7 @@ def user_vector(params, batch, cfg: RecsysConfig, *, device=None) -> torch.Tenso
     dev = _device(params, device)
     if cfg.kind in ("fm", "dcn"):
         ids = _flat_ids(cfg, _on(dev, batch["sparse"]))
-        u = embedding_bag(params["emb"], ids, _ones(ids)).to(cfg.dtype)
+        u = kops.embedding_bag(params["emb"], ids, _ones(ids)).to(cfg.dtype)
         if cfg.kind == "dcn":                                 # the mean: sum, then / F
             u = u / torch.tensor(float(cfg.n_sparse), dtype=u.dtype, device=dev)
         return u
@@ -450,5 +448,5 @@ def retrieval_topk(params, batch, cfg: RecsysConfig, cand, k: int = 100, *,
     u = user_vector(params, batch, cfg, device=device)[0].float()   # (D,)
     cand = _on(u.device, cand).float()
     if use_kernel:
-        return dot_topk(u, cand, k)
-    return k2.topk(cand @ u, k)
+        return kops.dot_topk(u, cand, k)
+    return kops.topk(cand @ u, k)

@@ -29,7 +29,13 @@ def _convert(tree, defs, where: str, device) -> dict:
         arr = np.asarray(tree)
         if tuple(arr.shape) != defs.shape:
             raise ValueError(f"{where}: shape {tuple(arr.shape)}, expected {defs.shape}")
-        return torch.tensor(arr.astype(np.float32), device=device, dtype=defs.dtype)
+        # one f32 view of the array (no host copy when it is one already), one
+        # copy onto the device, then the cast there (round to nearest even, as
+        # on the host, where a cast of billions of values takes seconds)
+        f32 = np.ascontiguousarray(arr, dtype=np.float32)
+        if not f32.flags.writeable:          # torch views only writable arrays
+            f32 = f32.copy()
+        return torch.from_numpy(f32).to(device=device, copy=True).to(defs.dtype)
     if not isinstance(tree, dict) or set(tree) != set(defs):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
         raise ValueError(f"{where or 'params'}: keys {got}, expected {sorted(defs)}")

@@ -29,12 +29,19 @@ Specs are :class:`P` (``PartitionSpec``): one entry per dimension, ``None``
 (replicated), an axis name or a tuple of names (row-major over them). Inputs
 are global arrays; outputs come back global on every process, so a rank
 mesh gathers a sharded output.
+
+:func:`count_collectives` counts what the collectives move per device,
+under the reference dry run's convention: an all-gather moves its output's
+bytes, an all-reduce twice its buffer's (a ring sends and receives about
+the whole payload). A rank mesh counts its real calls; a stacked mesh
+counts what a rank mesh of its shape would call, one partition's share.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import math
 from typing import Any, Callable
 
@@ -43,6 +50,66 @@ import torch
 from repro_torch.kernels.backend import resolve_device
 
 _AMBIENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+_COLLECTIVES: contextvars.ContextVar = contextvars.ContextVar("repro_torch_collectives",
+                                                             default=None)
+
+
+@dataclasses.dataclass
+class CollectiveLog:
+    """Bytes and calls by collective, per device."""
+
+    bytes_by_op: dict = dataclasses.field(default_factory=dict)
+    counts: dict = dataclasses.field(default_factory=dict)
+
+    def add(self, op: str, nbytes: int) -> None:
+        self.bytes_by_op[op] = self.bytes_by_op.get(op, 0) + nbytes
+        self.counts[op] = self.counts.get(op, 0) + 1
+
+    def record(self) -> dict:
+        """The dry run's ``collectives`` entry."""
+        return {"bytes_by_op": {op: float(b) for op, b in self.bytes_by_op.items()},
+                "counts": dict(self.counts),
+                "total_bytes": float(sum(self.bytes_by_op.values()))}
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count every collective of the meshes inside the block into the
+    :class:`CollectiveLog` it yields."""
+    log = CollectiveLog()
+    token = _COLLECTIVES.set(log)
+    try:
+        yield log
+    finally:
+        _COLLECTIVES.reset(token)
+
+
+def _moved(op: str, nbytes: int) -> None:
+    log = _COLLECTIVES.get()
+    if log is not None:
+        log.add(op, int(nbytes))
+
+
+def gather_groups(mesh: "Mesh", axes: tuple[str, ...]) -> list[str | None]:
+    """The collectives a rank mesh makes to gather over ``axes``: one over
+    the whole world when ``axes`` is the mesh's axes in order (None), else
+    one per axis, the fastest first."""
+    return [None] if axes == mesh.axis_names else list(reversed(axes))
+
+
+def unshard_moves(mesh: "Mesh", local_shape, spec, itemsize: int) -> list[int]:
+    """The output bytes of each all-gather that gathers a block of
+    ``local_shape`` placed by ``spec`` into the global value, in a rank
+    mesh's order (:meth:`RankMesh.unshard`)."""
+    shape = list(local_shape)
+    out = []
+    for d, e in enumerate(mesh._spec(spec, len(shape))):
+        if not e:
+            continue
+        for g in gather_groups(mesh, e):
+            shape[d] *= mesh.size if g is None else mesh.shape[g]
+            out.append(math.prod(shape) * itemsize)
+    return out
 
 
 class P(tuple):
@@ -86,6 +153,18 @@ class Mesh:
             raise ValueError(f"spec {spec} uses a mesh axis twice")
         return entries
 
+    def block_shape(self, shape, spec, *, pad: bool = False) -> tuple[int, ...]:
+        """One partition's block of a ``shape`` value placed by ``spec``.
+        A dimension that does not split evenly over its axes raises, or
+        with ``pad`` takes the ceiling, as GSPMD pads it."""
+        out = []
+        for n, e in zip(shape, self._spec(spec, len(shape))):
+            s = math.prod(self.shape[a] for a in e)
+            if n % s and not pad:
+                raise ValueError(f"a dimension of {n} does not split over {e} ({s})")
+            out.append(-(-n // s))
+        return tuple(out)
+
     def tensor(self, x) -> torch.Tensor:
         """An input on this mesh's device (numpy arrays converted)."""
         return torch.as_tensor(x).to(self.device)
@@ -118,6 +197,10 @@ class StackedMesh(Mesh):
         concatenated over ``axes`` (row-major over a tuple), as JAX's tiled
         ``all_gather(x, axes, axis=-1)``."""
         axes = self.axes(axes)
+        local = x.numel() // max(self.size, 1) * x.element_size()
+        for g in gather_groups(self, axes):
+            local *= self.size if g is None else self.shape[g]
+            _moved("all-gather", local)
         k = len(self.shape)
         y = self._grid(x)
         pos = [self.axis_names.index(a) for a in axes]
@@ -132,6 +215,7 @@ class StackedMesh(Mesh):
         """The sum over ``axes``, in coordinate order, on every partition."""
         y = self._grid(x)
         for a in self.axes(axes):
+            _moved("all-reduce", 2 * (x.numel() // max(self.size, 1)) * x.element_size())
             i = self.axis_names.index(a)
             acc = y.select(i, 0)
             for c in range(1, self.shape[a]):
@@ -146,14 +230,11 @@ class StackedMesh(Mesh):
         if not used:        # replicated: one view, no copy
             return x.unsqueeze(0).expand(self.size, *x.shape)
         shape, at = [], {}
-        for n, e in zip(x.shape, entries):
-            s = math.prod(self.shape[a] for a in e)
-            if n % s:
-                raise ValueError(f"a dimension of {n} does not split over {e} ({s})")
+        for n, e in zip(self.block_shape(x.shape, spec), entries):
             for a in e:
                 at[a] = len(shape)
                 shape.append(self.shape[a])
-            shape.append(n // s)
+            shape.append(n)
         y = x.reshape(shape)
         front = [a for a in self.axis_names if a in used]
         y = y.permute([at[a] for a in front]
@@ -169,6 +250,8 @@ class StackedMesh(Mesh):
         spec's axes, partition 0's copy along every other axis."""
         entries = self._spec(spec, y.dim() - 1)
         used = [a for e in entries for a in e]
+        for n in unshard_moves(self, y.shape[1:], spec, y.element_size()):
+            _moved("all-gather", n)
         g = self._grid(y)
         for i in reversed(range(len(self.axis_names))):
             if self.axis_names[i] not in used:
@@ -216,15 +299,14 @@ class RankMesh(Mesh):
     def _gather(self, x: torch.Tensor, axes: tuple[str, ...], dim: int) -> torch.Tensor:
         # the whole mesh in mesh order is the world in rank order: one
         # collective; else the axes one at a time, the fastest first
-        if axes == self.axis_names:
-            groups = [(None, self.size)]
-        else:
-            groups = [(self.device_mesh.get_group(a), self.shape[a]) for a in reversed(axes)]
-        for group, n in groups:
+        for a in gather_groups(self, axes):
+            group = None if a is None else self.device_mesh.get_group(a)
+            n = self.size if a is None else self.shape[a]
             x = x.contiguous()
             parts = [torch.empty_like(x) for _ in range(n)]
             self._dist.all_gather(parts, x, group=group)
             x = torch.cat(parts, dim=dim)
+            _moved("all-gather", x.numel() * x.element_size())
         return x
 
     def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
@@ -235,19 +317,17 @@ class RankMesh(Mesh):
         x = x.clone()
         for a in self.axes(axes):
             self._dist.all_reduce(x, group=self.device_mesh.get_group(a))
+            _moved("all-reduce", 2 * x.numel() * x.element_size())
         return x
 
     def shard(self, x: torch.Tensor, spec) -> torch.Tensor:
+        block = self.block_shape(x.shape, spec)
         for d, e in enumerate(self._spec(spec, x.dim())):
             if e:
-                s = math.prod(self.shape[a] for a in e)
-                if x.shape[d] % s:
-                    raise ValueError(f"a dimension of {x.shape[d]} does not split over {e}")
                 idx = 0
                 for a in e:
                     idx = idx * self.shape[a] + self._coord[a]
-                n = x.shape[d] // s
-                x = x.narrow(d, idx * n, n)
+                x = x.narrow(d, idx * block[d], block[d])
         return x.unsqueeze(0)
 
     def unshard(self, y: torch.Tensor, spec) -> torch.Tensor:

@@ -15,10 +15,14 @@ mapping those names onto mesh axes. Conventions as the reference's:
   the data axis.
 
 A placement is a :class:`NamedSharding`: a mesh of
-:mod:`repro_torch.parallel.compat` and a :class:`P`. On one card every
-partition of a stacked mesh lives on that card, so a placement reads as its
-mesh's device (``.device``); sharded training over ranks waits for ROADMAP
-Queue 1 item 10.
+:mod:`repro_torch.parallel.compat` and a :class:`P`. It places a global
+tensor (:meth:`NamedSharding.place`): on a
+:class:`~repro_torch.parallel.compat.RankMesh` this rank keeps its block;
+on a :class:`~repro_torch.parallel.compat.StackedMesh` every partition
+lives on the mesh's one device, so the tensor stays whole there. Both
+refuse a shape that does not split evenly over the spec's axes.
+:func:`place_tree` and :func:`gather_tree` place a state by its specs and
+gather it back.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping, Sequence
 
+import torch
+
 from repro_torch.models.common import tree_map
 from repro_torch.parallel import compat
-from repro_torch.parallel.compat import Mesh, P
+from repro_torch.parallel.compat import Mesh, P, RankMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +137,22 @@ class NamedSharding:
     def device(self):
         return self.mesh.device
 
+    def place(self, x) -> torch.Tensor:
+        """A global value → what this process holds of it: its block on a
+        rank mesh, the whole value on a stacked mesh's device."""
+        x = self.mesh.tensor(x)
+        if isinstance(self.mesh, RankMesh):
+            return self.mesh.shard(x, self.spec)[0]
+        self.mesh.block_shape(x.shape, self.spec)        # refuses an uneven split
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """What this process holds → the global value (an all-gather over
+        the spec's axes on a rank mesh; as it is on a stacked mesh)."""
+        if isinstance(self.mesh, RankMesh):
+            return self.mesh.unshard(x[None], self.spec)
+        return x
+
 
 def param_specs(defs: Any, rules: ShardRules) -> Any:
     """Tree of P matching a ParamDef tree."""
@@ -150,9 +172,36 @@ def tree_named(mesh: Mesh, specs: Any) -> Any:
     return tree_map(lambda s: NamedSharding(mesh, s), specs)
 
 
+def spec_leaves(specs: Any) -> list:
+    """The P leaves of a tree of specs (dicts in sorted key order, tuples
+    and lists in order; a P is a leaf, and so is a None)."""
+    if isinstance(specs, P) or specs is None:
+        return [specs]
+    if isinstance(specs, dict):
+        return [leaf for key in sorted(specs) for leaf in spec_leaves(specs[key])]
+    return [leaf for s in specs for leaf in spec_leaves(s)]
+
+
+def map_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a tree of tensors and its tree of P."""
+    if isinstance(specs, P):
+        return fn(tree, specs)
+    return {key: map_specs(fn, tree[key], specs[key]) for key in sorted(specs)}
+
+
+def place_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """A global state → what this process holds of it, leaf by leaf."""
+    return map_specs(lambda x, s: NamedSharding(mesh, s).place(x), tree, specs)
+
+
+def gather_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """What this process holds of a state → the global state."""
+    return map_specs(lambda x, s: NamedSharding(mesh, s).gather(x), tree, specs)
+
+
 # Collective helpers -----------------------------------------------------------
 
-def hierarchical_psum(x, *, inner: str = "data", outer: str | None = None):
+def hierarchical_psum(x, *, inner: str = "data", outer: "str | None" = None):
     """Gradient reduction, pod-aware: psum over the fast in-pod axis first,
     then the slow cross-pod axis (inside a ``shard_map`` body)."""
     y = compat.psum(x, inner)

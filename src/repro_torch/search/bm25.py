@@ -38,9 +38,8 @@ import torch
 from repro_torch.index.builder import PackedIndex
 from repro_torch.kernels import ref
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.kernels.bm25_block import bm25_block_impacts
-from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, keep_mask
-from repro_torch.kernels.topk import topk
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.bm25_pruned import keep_mask
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -168,7 +167,7 @@ def bm25_impacts(state: SearchState, term_ids: torch.Tensor, qtf: torch.Tensor,
         if state.stacked:
             raise ValueError("K3's fused call reads one partition's doc_len: a stacked "
                              "state takes use_kernel=False")
-        return bm25_block_impacts(tf, docs, valid, state.doc_len, idf, *state.params,
+        return kops.bm25_block_impacts(tf, docs, valid, state.doc_len, idf, *state.params,
                                   state.n_docs)
     dl = _doc_len(state, docs)
     imp = ref.bm25_block_scores_ref(tf, dl, idf, state.k1, state.b, state.avgdl)
@@ -212,13 +211,13 @@ def score_pruned(state: SearchState, term_ids: torch.Tensor, qtf: torch.Tensor,
         tid = torch.clamp(term_ids, min=0).long()
         idf_q = state.idf[tid] * qtf                                 # (Q, T)
         dl = _doc_len(state, docs)
-        return bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid[..., 0],
+        return kops.bm25_pruned_topk(tf, dl, docs, idf_q, ub, valid[..., 0],
                                 *state.params, k=k, n_docs=state.n_docs)
     imp = bm25_impacts(state, term_ids, qtf, docs, tf, valid)
     keep = pruned_keep(docs, imp, ub, valid, k=k, n_docs=state.n_docs)
     acc = accumulate_dense(docs, torch.where(keep[..., None], imp, 0.0), state.n_docs)
     if use_topk_kernel:
-        vals, ids = topk(acc, k)
+        vals, ids = kops.topk(acc, k)
     else:
         vals, ids = ref.topk_ref(acc, k)
     return vals, ids.to(torch.int32), keep.sum(dim=(1, 2), dtype=torch.int32)
@@ -298,7 +297,7 @@ def make_search_fn(n_docs: int, *, max_terms: int, max_blocks: int, k: int,
                               use_kernel=use_kernel)
             kk = min(k, n_docs)          # a tiny partition may hold < k docs
             if use_topk_kernel:
-                vals, ids = topk(acc, kk)
+                vals, ids = kops.topk(acc, kk)
             else:
                 vals, ids = ref.topk_ref(acc, kk)
             return _pad_k(vals, ids, k, n_docs)

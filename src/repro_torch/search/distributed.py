@@ -110,8 +110,17 @@ def stacked_search_state(parts: dict, idf: torch.Tensor, params: torch.Tensor,
         doc_len=parts["doc_len"], idf=idf,
         avgdl=params[2], k1=params[0], b=params[1],
         n_docs=cfg.n_docs_local,
-        params=tuple(params.tolist()),
+        params=_host_params(params),
     )
+
+
+def _host_params(params: torch.Tensor) -> tuple:
+    """(k1, b, avgdl) on the host, read back once; on meta tensors (the dry
+    run's trace, which holds no values) the three 0-d meta tensors, which
+    only a wrapper's shape rule receives."""
+    if params.device.type == "meta":
+        return tuple(params.unbind())
+    return tuple(params.tolist())
 
 
 def partitions_per_call(cfg: DistSearchConfig, Q: int, T: int) -> int:

@@ -232,5 +232,8 @@ def test_launcher_restarts_equal_reference(monkeypatch, tmp_path):
     assert (got["restarts"], got["steps_lost"]) == (want["restarts"], want["steps_lost"]) == (2, 3)
     assert [h["step"] for h in got["history"]] == [h["step"] for h in want["history"]]
     assert all(np.isfinite(h["loss"]) for h in got["history"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.main(["--mesh", "prod", "--device", "cpu"])
+    # --mesh prod trains over the (16, 16) mesh since the sharded step's port
+    # (tests/test_torch_sharded_train.py); a batch of 2 does not split over it
+    with pytest.raises(ValueError, match="does not split"):
+        ttrain.main(["--mesh", "prod", "--device", "cpu", "--preset", "reduced", "--steps", "1",
+                     "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path / "prod")])

@@ -931,3 +931,40 @@ def test_graphcast_train_steps_repeat_bitwise_under_deterministic_algorithms(cud
                          env=env, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().splitlines()[-1] == "SAME"
+
+
+def test_ep_moe_train_step_repeats_bitwise_on_the_card(cuda):
+    """olmoe's reduced config with ``moe_impl="ep"`` on a stacked (1, 2)
+    mesh on the card: two train steps from one init, twice, give the same
+    bits. The dispatch's and the combine's row gathers differentiate
+    through ``gather_rows`` (fixed-order segment sums, no float atomics),
+    and K2 routes on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import topk as k2
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.transformer import lm_loss, lm_param_defs
+    from repro_torch.parallel.compat import StackedMesh, use_mesh
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b").reduced_config(), moe_impl="ep")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (4, 65)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(cuda),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(cuda)}
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg), OptConfig(lr=1e-3, warmup_steps=1))
+    before = k2.topk.launches
+    runs = []
+    with use_mesh(StackedMesh((1, 2), device=cuda)):
+        for _ in range(2):
+            state = init_train_state(init_params(lm_param_defs(cfg),
+                                                 torch.Generator().manual_seed(0), cuda))
+            for _ in range(2):
+                state, metrics = step(state, batch)
+            runs.append([t.cpu() for t in tree_leaves(state)] + [metrics["loss"].cpu()])
+    assert k2.topk.launches > before
+    assert float(runs[0][-1]) == float(runs[0][-1])          # a finite loss
+    for a, b in zip(*runs):
+        assert _bits(a.contiguous().view(torch.int32) if a.is_floating_point() else a,
+                     b.contiguous().view(torch.int32) if b.is_floating_point() else b)

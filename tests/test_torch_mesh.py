@@ -309,8 +309,12 @@ def test_state_specs_abstract_state_and_extent_check():
     assert family("search") == ["anlessini"] and mod.SHAPES["serve_q64"] == {"Q": 64}
     rules = mod.rules()                     # the reference's rules since the sharding port
     assert dict(rules.mapping) == {} and tuple(rules.batch) == ("data",)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mod.cells(rules)
+    # the cells are built since the cell builders' port: late-bound, each
+    # binds its geometry to the mesh (tests/test_torch_cells.py holds them)
+    cells = mod.cells(rules)
+    assert list(cells) == ["serve_q1", "serve_q64"]
+    fn, args, specs = cells["serve_q1"].build(_stacked((1, 1)))
+    assert args[0]["block_docs"].shape == (1, 3_932_160, 128) and callable(fn)
 
 
 def test_heterogeneous_packs_are_refused(corpus):

@@ -14,6 +14,11 @@ own initial parameters.
   (4, 2) rank mesh of 8 gloo processes (one subprocess with a time limit,
   as ``test_torch_mesh.py`` runs them), against the dense oracle at the
   reference test's 2e-5 (``tests/test_distributed.py``).
+* A gradient through expert-parallel MoE: ``lm_loss`` of olmoe's reduced
+  config with ``moe_impl="ep"`` on stacked (1, 1), (1, 2) and (1, 4)
+  meshes, its gradients against the global dispatch's and the reference's
+  at ``GRAD_TOL`` (``rtol=1e-4, atol=1e-6``, the gradient tolerance of
+  ``test_torch_train.py``).
 """
 
 import os
@@ -240,3 +245,96 @@ def test_rank_mesh_ep_equals_stacked(tmp_path):
         out = dict(np.load(tmp_path / f"rank{rank}.npz"))
         assert np.array_equal(out["y"].view(np.uint32), stacked["y"].view(np.uint32))
         np.testing.assert_allclose(out["aux"], stacked["aux"], rtol=1e-6)
+
+
+# the gradient tolerance of test_torch_train.py::test_lm_loss_and_grads_match_reference
+# (EP_TOL above bounds the forward only)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def moe_lm_grads():
+    """olmoe's reduced config: the reference's ``lm_loss`` and gradient and
+    the port's under the global dispatch, on one numpy batch."""
+    from repro.configs import get_arch as j_get_arch
+    from repro.models import transformer as jtr
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.weights import tree_from_numpy
+    from repro_torch.train.steps import value_and_grad
+    jcfg = j_get_arch("olmoe-1b-7b").reduced_config()
+    gcfg = get_arch("olmoe-1b-7b").reduced_config()
+    jparams = j_init_params(jtr.lm_param_defs(jcfg), jax.random.PRNGKey(1))
+    tparams = tree_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                              ttr.lm_param_defs(gcfg), device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, gcfg.vocab, (2, 17)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    (jl, _), jg = jax.jit(jax.value_and_grad(lambda p: jtr.lm_loss(p, batch, jcfg),
+                                             has_aux=True))(jparams)
+    gl, _, gg = value_and_grad(lambda p, b: ttr.lm_loss(p, b, gcfg), tparams, batch)
+    return gcfg, tparams, batch, (float(jl), jax.tree_util.tree_leaves(jg)), (float(gl), gg)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (1, 4)])
+def test_ep_lm_loss_gradient_matches_global_and_reference(shape, moe_lm_grads):
+    """``lm_loss`` with ``moe_impl="ep"`` differentiates through
+    ``ep_moe_ffn`` on a stacked mesh (at data = 1 every partition routes
+    every token, so the kept assignments are the global dispatch's): its
+    loss and gradients against the port's global dispatch and the
+    reference's ``lm_loss`` gradient, at ``GRAD_TOL``. A gradient that
+    skipped the experts would leave their weights at zero."""
+    import dataclasses
+
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.steps import value_and_grad
+    gcfg, tparams, batch, (jl, jg), (gl, gg) = moe_lm_grads
+    ecfg = dataclasses.replace(gcfg, moe_impl="ep")
+    with use_mesh(StackedMesh(shape, device="cpu")):
+        el, _, eg = value_and_grad(lambda p, b: ttr.lm_loss(p, b, ecfg), tparams, batch)
+    np.testing.assert_allclose(float(el), gl, rtol=1e-5)
+    np.testing.assert_allclose(float(el), jl, rtol=1e-5)
+    for e, g, j in zip(tree_leaves(eg), tree_leaves(gg), jg):
+        np.testing.assert_allclose(e.numpy(), g.numpy(), **GRAD_TOL)
+        np.testing.assert_allclose(e.numpy(), np.asarray(j), **GRAD_TOL)
+    ffn = eg["layers"]["ffn"]
+    assert all(float(ffn[k].abs().sum()) > 0 for k in ("wg", "wi", "wo", "router"))
+
+
+def test_ep_remat_backward_on_another_thread_sees_the_forward_mesh(moe_lm_grads):
+    """Autograd runs a CUDA backward on a thread of its own, where the
+    forward's ambient mesh (a context variable) is unset; the remat'd
+    layer's recompute must still find it. Here the backward runs on another
+    thread on the CPU: the gradients equal the same thread's, bit for bit."""
+    import dataclasses
+    import threading
+
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.common import tree_leaves, tree_map
+    gcfg, tparams, batch, _, _ = moe_lm_grads
+    cfg = dataclasses.replace(gcfg, moe_impl="ep", remat=True)
+
+    def grads(backward_elsewhere: bool):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), tparams)
+        with use_mesh(StackedMesh((1, 2), device="cpu")):
+            loss, _ = ttr.lm_loss(live, batch, cfg)
+        leaves = tree_leaves(live)
+        out = {}
+
+        def run():
+            out["g"] = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                           materialize_grads=True)
+
+        if backward_elsewhere:
+            t = threading.Thread(target=run)
+            t.start()
+            t.join(timeout=120)
+            assert not t.is_alive()
+        else:
+            with use_mesh(StackedMesh((1, 2), device="cpu")):
+                run()
+        return out["g"]
+
+    for a, b in zip(grads(True), grads(False)):
+        assert torch.equal(a, b)

@@ -116,9 +116,100 @@ def ep_moe_outputs(mesh) -> dict:
     return {"y": y.numpy(), "aux": np.float32(aux)}
 
 
+def numpy_params(defs, seed: int) -> list:
+    """One array per ParamDef leaf (sorted key order), from numpy: ones,
+    zeros, or normal draws scaled as ``init_params`` scales them."""
+    from repro_torch.models.common import tree_leaves
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in tree_leaves(defs):
+        if d.init in ("ones", "zeros"):
+            out.append((np.ones if d.init == "ones" else np.zeros)(d.shape, np.float32))
+            continue
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        scale = d.scale if d.scale is not None else (
+            0.02 if d.init == "embed" else 1.0 / np.sqrt(fan_in))
+        out.append((rng.standard_normal(d.shape) * scale).astype(np.float32))
+    return out
+
+
+SHARDED_TRAIN_STEPS = 2
+
+
+def sharded_train_inputs():
+    """``tests/test_distributed.py``'s sharded-step case: stablelm-3b's
+    reduced config, lm_rules(fsdp=True), a batch of 8 × 16 tokens, AdamW at
+    lr 1e-3 — with one warmup step, so that the first step already moves
+    every parameter by about lr (the default 100 would move it by lr/100);
+    parameters and tokens from numpy. Returns (cfg, defs, numpy parameter
+    leaves, batch, rules, OptConfig)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import lm_param_defs
+    from repro_torch.parallel.sharding import lm_rules
+    from repro_torch.train.optim import OptConfig
+    cfg = get_arch("stablelm-3b").reduced_config()
+    defs = lm_param_defs(cfg)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (8, 16)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (8, 16)).astype(np.int32)}
+    return (cfg, defs, numpy_params(defs, 0), batch, lm_rules(fsdp=True),
+            OptConfig(lr=1e-3, warmup_steps=1))
+
+
+def train_state(defs, leaves, device="cpu"):
+    """The port's initial train state from numpy parameter leaves."""
+    from repro_torch.models.common import abstract_params
+    from repro_torch.train.optim import unflatten
+    from repro_torch.train.steps import init_train_state
+    params = unflatten(abstract_params(defs), [
+        torch.tensor(a, device=device, dtype=m.dtype)
+        for a, m in zip(leaves, _leaves(abstract_params(defs)))])
+    return init_train_state(params)
+
+
+def _leaves(tree):
+    from repro_torch.models.common import tree_leaves
+    return tree_leaves(tree)
+
+
+def sharded_train_outputs(mesh) -> dict:
+    """SHARDED_TRAIN_STEPS sharded train steps on ``mesh``: each step's
+    loss and grad norm, every parameter leaf and first moment gathered
+    back (``p<i>``, ``m<i>``), and what compat's collectives moved during
+    the first step (the dry run's ``collectives`` entry, as JSON)."""
+    import json
+
+    from repro_torch.configs.cells import train_state_specs
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.parallel import compat
+    from repro_torch.parallel.sharding import gather_tree, place_tree
+    from repro_torch.train.steps import make_sharded_train_step
+    cfg, defs, leaves, batch, rules, opt = sharded_train_inputs()
+    sspecs = train_state_specs(defs, rules)
+    bspecs = {"tokens": rules.batch_spec(None), "labels": rules.batch_spec(None)}
+    step = make_sharded_train_step(lambda p, b: lm_loss(p, b, cfg), opt, mesh, sspecs, bspecs)
+    state = place_tree(train_state(defs, leaves), sspecs, mesh)
+    local = place_tree(batch, bspecs, mesh)
+    losses, norms = [], []
+    for i in range(SHARDED_TRAIN_STEPS):
+        with compat.count_collectives() as log:
+            state, metrics = step(state, local)
+        if i == 0:
+            moved = log.record()
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    full = gather_tree(state, sspecs, mesh)
+    out = {"loss": np.float32(losses), "grad_norm": np.float32(norms),
+           "collectives": np.array(json.dumps(moved, sort_keys=True))}
+    for i, (p, m) in enumerate(zip(_leaves(full["params"]), _leaves(full["opt"]["m"]))):
+        out[f"p{i}"], out[f"m{i}"] = p.float().numpy(), m.numpy()
+    return out
+
+
 # case: (mesh shape, outputs)
 CASES = {"search": ((4, 2), search_outputs), "lookup": ((2, 4), lookup_outputs),
-         "bert4rec": ((1, 4), bert4rec_outputs), "ep_moe": ((4, 2), ep_moe_outputs)}
+         "bert4rec": ((1, 4), bert4rec_outputs), "ep_moe": ((4, 2), ep_moe_outputs),
+         "sharded_train": ((4, 2), sharded_train_outputs)}
 
 
 def _rank(rank: int, case: str, world: int, workdir: str) -> None:
