@@ -6,7 +6,7 @@ training path and the cells (the dry run, the cells that fit, sharded
 training's launcher) on one NVIDIA GPU and hold every hand-written kernel
 against its plain PyTorch twin.
 
-    python3 chip_smoke.py                 # 500,000-doc partition (the default)
+    python3 chip_smoke.py                 # 250,000-doc partition (the default)
     python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
@@ -23,8 +23,9 @@ against its plain PyTorch twin.
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
   2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-  3. a synthetic 500,000-passage partition (``--docs``, cut from 1M to keep
-     the whole run well inside its time limit; MS MARCO-like passage length,
+  3. a synthetic 250,000-passage partition (``--docs``, cut from 1M, then
+     from 500,000, to keep the whole run inside its time limit on slower
+     hosts; MS MARCO-like passage length,
      the anlessini config's 2^19 vocab), published and served by
      ``build_search_app`` with the pruned + kernels config on the card;
   4. K3, K2 and K1 against their twins on that index's real gathered
@@ -67,9 +68,10 @@ Phases (each raises on failure; the script then exits non-zero):
      decimals), on 64 queries whose terms have at most ``max_blocks``·128
      postings — the standard's own precondition: no impact-ordered
      truncation in any partition or in the single node. Then a commit at
-     full scale: ``add_documents`` of 10,000 new passages
-     (``synth_corpus(10_000, seed=2)``, ext ids of their own) and
-     ``delete_documents`` of 10,000 live ids (``default_rng(3)``), one
+     full scale: ``add_documents`` of 1 % of the live passages anew
+     (``synth_corpus(n, seed=2)``, ext ids of their own; 2,500 at the
+     default) and ``delete_documents`` of as many live ids
+     (``default_rng(3)``), one
      ``commit()``, whose writers must publish deltas (no merge at 1 %
      churn); its host wall, modeled latency, the rollover's pings and cold
      hydrations per pool, the wall to the first answer of generation 2 and
@@ -224,7 +226,19 @@ Phases (each raises on failure; the script then exits non-zero):
      sharded step (gradient and metrics averaged by gloo, the clip over the
      whole reduced gradient, AdamW on each rank's blocks): each step's loss
      within 1e-4 of the host step's and its grad norm within 1e-4 of
-     itself.
+     itself; (d) right after each of the 12 recsys ``serve_p99``,
+     ``serve_bulk`` and ``retrieval_cand`` cells in (b), on the same
+     inputs, its sharded function (``cell.build(mesh)``: tables row-sharded
+     over ``model``, the batch over ``data``, a retrieval's candidates over
+     ``data`` ranked on K4 and merged by K2) on a stacked (16, 16) mesh,
+     ``serve_bulk`` on (4, 2) (cut: a stacked mesh runs the ``model``
+     replicas' towers in turn): wall, peak, K2/K4/K5/K6 launches exactly as
+     the body implies, and the outputs against the unsharded run's (ids
+     equal; values bitwise, or, where the sharded K6 sums a bag in another
+     order, within that order's bound); each arch's ``serve_p99`` and fm's
+     ``retrieval_cand`` also on a (1, 2) rank mesh of 2 gloo processes on
+     the card, started with (b) and running beside it, bit for bit as the
+     stacked (1, 2) mesh on every rank.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -1048,7 +1062,7 @@ def sparse_vs_single(app, single, queries):
           f"(ext ids, scores to 6 decimals)", flush=True)
 
 
-COMMIT_DOCS = 10_000          # added and deleted by phase 6's commit: 1 % churn
+COMMIT_CHURN = 100            # phase 6's commit adds and deletes 1 in 100 live docs: 1 % churn
 
 
 def memo_embedder(dim: int):
@@ -1088,18 +1102,20 @@ def dense_oracle_after(oracle, live, embedder, torch):
 
 
 def fleet_commit(app, queries, oracle, torch, kern):
-    """Phase 6d: a commit at full scale. ``add_documents`` of COMMIT_DOCS
-    new documents and ``delete_documents`` of COMMIT_DOCS live ones, one
+    """Phase 6d: a commit at full scale. ``add_documents`` of n new
+    documents and ``delete_documents`` of n live ones (n the live docs
+    over COMMIT_CHURN), one
     ``commit()`` (the merge policy's defaults publish deltas at this churn),
     then the modes' traffic again on the new generation. Returns the
     traffic's launches."""
     from repro_torch.data.corpus import synth_corpus
-    added = [(f"nrt{i:06d}", text) for i, (_, text) in enumerate(
-        synth_corpus(COMMIT_DOCS, vocab=1 << 19, mean_len=60, seed=2))]
     live = [e for e, _ in app.indexer.live_corpus()]
+    n = len(live) // COMMIT_CHURN
+    added = [(f"nrt{i:06d}", text) for i, (_, text) in enumerate(
+        synth_corpus(n, vocab=1 << 19, mean_len=60, seed=2))]
     require(not set(e for e, _ in added) & set(live), "added ext ids collide")
     rng = np.random.default_rng(3)
-    deleted = [live[i] for i in rng.choice(len(live), COMMIT_DOCS, replace=False)]
+    deleted = [live[i] for i in rng.choice(len(live), n, replace=False)]
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1126,7 +1142,7 @@ def fleet_commit(app, queries, oracle, torch, kern):
     by_pool: dict = {}
     for r in pings:
         by_pool.setdefault(r.fn, []).append(r)
-    print(f"[6] commit of {COMMIT_DOCS} adds and {COMMIT_DOCS} deletes: staging "
+    print(f"[6] commit of {n} adds and {n} deletes: staging "
           f"{(t1 - t0) * 1e3:.1f} ms, commit() host wall {t2 - t1:.2f} s, modeled latency "
           f"{c.latency_s:.4f} s; writers {len(writers)}, ops "
           f"{ {w.fn: 'merge' if int(w.fn.rsplit('p', 1)[1]) in c.body['merged'] else 'delta' for w in writers} }, "
@@ -1150,7 +1166,7 @@ def fleet_commit(app, queries, oracle, torch, kern):
     gone = served & set(deleted)
     require(not gone, f"deleted ext ids served after the commit: {sorted(gone)[:5]}")
     print(f"[6] generation 2: {len(served)} distinct ext ids served, none of the "
-          f"{COMMIT_DOCS} deleted", flush=True)
+          f"{n} deleted", flush=True)
     return launches
 
 
@@ -3340,6 +3356,13 @@ CELLS_LAUNCHER = ["--arch", "stablelm-3b", "--preset", "100m", "--steps", "10", 
 CELLS_ON_PATH = ("K2", "K4", "K5", "K6")    # the kernels the cells launch; K1 and K3 are not
 CELLS_JOBS = 7                  # dry-run cells traced at a time, each in a worker process
 CELLS_RANKS = 2                 # processes of phase 15c's rank mesh, all on the one card
+# 15(d): each recsys serve and retrieval cell's sharded function, on these stacked meshes;
+# serve_bulk's is cut from (16, 16): a stacked mesh runs the model replicas' towers in turn
+SHARDED_MESHES = {"serve_p99": (16, 16), "serve_bulk": (4, 2), "retrieval_cand": (16, 16)}
+SHARDED_RANK_MESH = (1, 2)      # 15(d)'s rank mesh: 2 gloo processes on the one card
+SHARDED_RANK_CELLS = ("fm/serve_p99", "dcn-v2/serve_p99", "bst/serve_p99", "bert4rec/serve_p99",
+                      "fm/retrieval_cand")
+UNIT = 2.0 ** -24               # f32's unit roundoff
 
 
 def seeded_block(n: int, *, integer: bool, seed: int, high: int = 4, scale: float = 0.05,
@@ -3500,14 +3523,17 @@ class DryRun:
         return self.records, dict(wall_s=self.wall, per_mesh=per_mesh)
 
 
-def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
+def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict, dict, dict]:
     """Phase 15b: every full single-pod cell whose global arguments plus its
     trace's peak fit CELLS_FIT_BYTES, materialized on the card from seeds;
     the LM serving cells at CELLS_LM_BATCH sequences (cut) when the full
     weights plus that trace's peak fit. Each run holds its outputs finite
     and shaped as the meta trace at the same arguments (a train cell: the
     loss finite, the new parameters finite, the first leaf moved), and
-    counts its launches of K1–K6."""
+    counts its launches of K1–K6. Phase 15d: after each recsys serve and
+    retrieval cell, its sharded function on the same inputs
+    (:func:`sharded_cell`); the rank mesh (:class:`ServingRanks`) beside.
+    Returns (b)'s results, every run's launches, and (d)'s record."""
     from repro_torch.configs import build_cells
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.parallel import compat
@@ -3516,90 +3542,108 @@ def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict
     card_mesh = StackedMesh((1, 1), device=device)
     prod_meta = make_production_mesh(device="meta")
     prod_card = make_production_mesh(device=device)
-    results, launches = {}, {}
+    results, launches, sharded, stacked_small = {}, {}, {}, {}
     held: dict = {}                 # one arch's serving parameters, while its cells run
     cells = {}
+    ranks = ServingRanks(seed, device)      # 15(d)'s rank mesh, beside (b)
     from repro_torch.configs import ASSIGNED
     # the LMs last: their train cells' records (the dry run's longest traces)
     # come in while the others run
     for arch in sorted(ASSIGNED + ["anlessini"], key=lambda a: a in LM_ARCHS):
         for shape, cell in build_cells(arch).items():
             cells[f"{arch}/{shape}"] = cell
-    for name, cell in cells.items():
-        rec = dry.record(name)
-        if held.get("arch") != name.split("/")[0]:
-            held.clear()
+    try:
+        for name, cell in cells.items():
+            rec = dry.record(name)
+            if held.get("arch") != name.split("/")[0]:
+                held.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                held["arch"] = name.split("/")[0]
+            if rec.get("skip"):
+                continue
+            lm = name.split("/")[0] in LM_ARCHS and cell.kind in ("prefill", "decode")
+            late = cell.fn is None          # anlessini: the mesh search is built for its mesh
+            serving = hasattr(cell, "build") and not late   # a recsys cell with a sharded build
+            if late:
+                fn, args, _ = cell.build(prod_meta)
+                mesh_meta, mesh_card = prod_meta, prod_card
+            else:
+                fn, args = cell.fn, cell.args
+                mesh_meta, mesh_card = meta_mesh, card_mesh
+            if lm:
+                args = lm_cut(cell, CELLS_LM_BATCH)
+            want, arg_bytes, peak = meta_trace(fn, args, mesh_meta)
+            if not (lm or serving):         # the record of a serving cell is its sharded trace's
+                arg_bytes, peak = rec["global"]["argument_bytes"], rec["global"]["peak_bytes"]
+            if arg_bytes + peak > CELLS_FIT_BYTES:
+                results[name] = dict(run=False, bytes=arg_bytes + peak)
+                continue
+            t0 = time.perf_counter()
+            if late:
+                run_fn = cell.build(prod_card)[0]
+                cargs = anlessini_args(args, torch, device, seed)
+            else:
+                run_fn = fn
+                cargs = cell_args(cell, args, torch, device, seed, held)
+            torch.cuda.synchronize()
+            t_make = time.perf_counter() - t0
+            before = (leaves_of(cargs[0]["params"])[0].detach().clone()
+                      if cell.kind == "train" else None)
+            reset(kern)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with compat.use_mesh(mesh_card):
+                out = run_fn(*cargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak_card = torch.cuda.max_memory_allocated()
+            got = {k: fn_.launches for k, fn_ in kern.items()}
+            launches[f"phase 15 {name}"] = got
+            if cell.kind == "train":
+                new_state, metrics = out
+                loss = float(metrics["loss"])
+                require(math.isfinite(loss), f"{name}: loss {loss}")
+                gl, wl = leaves_of(new_state), leaves_of(want[0])
+                after = leaves_of(new_state["params"])[0]
+                require(not torch.equal(before, after), f"{name}: the first parameter leaf did "
+                                                        "not move")
+            else:
+                loss = None
+                gl, wl = leaves_of(out), leaves_of(want)
+            require(len(gl) == len(wl) and all(
+                tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype for g, w in zip(gl, wl)),
+                f"{name}: output shapes {[tuple(g.shape) for g in gl]} != the meta trace's "
+                f"{[tuple(w.shape) for w in wl]}")
+            require(all(bool(torch.isfinite(g.float()).all()) for g in gl if g.is_floating_point()),
+                    f"{name}: non-finite outputs")
+            cut = f"batch {CELLS_LM_BATCH} (cut)" if lm else "full"
+            results[name] = dict(run=True, cut=cut, make_s=t_make, wall_ms=wall * 1e3,
+                                 peak=peak_card, loss=loss, launches=got,
+                                 bytes=arg_bytes + peak)
+            print(f"[15b] {name} at {cut}: made in {t_make:.1f} s, ran in {wall * 1e3:.1f} ms, "
+                  f"peak {peak_card} B (trace: args + peak {arg_bytes + peak} B), outputs finite "
+                  f"and shaped as the meta trace{'' if loss is None else f', loss {loss:.6g}'}; "
+                  f"launches {got}", flush=True)
+            if serving:
+                sharded[name], host = sharded_cell(name, cell, cargs, out, kern, torch, device)
+                launches[f"phase 15d {name}"] = sharded[name]["launches"]
+                stacked_small.update(host)
+            del out, cargs, before
             gc.collect()
             torch.cuda.empty_cache()
-            held["arch"] = name.split("/")[0]
-        if rec.get("skip"):
-            continue
-        lm = name.split("/")[0] in LM_ARCHS and cell.kind in ("prefill", "decode")
-        late = hasattr(cell, "build")
-        if late:
-            fn, args, _ = cell.build(prod_meta)
-            mesh_meta, mesh_card = prod_meta, prod_card
-        else:
-            fn, args = cell.fn, cell.args
-            mesh_meta, mesh_card = meta_mesh, card_mesh
-        if lm:
-            args = lm_cut(cell, CELLS_LM_BATCH)
-        want, arg_bytes, peak = meta_trace(fn, args, mesh_meta)
-        if not lm:
-            arg_bytes, peak = rec["global"]["argument_bytes"], rec["global"]["peak_bytes"]
-        if arg_bytes + peak > CELLS_FIT_BYTES:
-            results[name] = dict(run=False, bytes=arg_bytes + peak)
-            continue
-        t0 = time.perf_counter()
-        if late:
-            run_fn = cell.build(prod_card)[0]
-            cargs = anlessini_args(args, torch, device, seed)
-        else:
-            run_fn = fn
-            cargs = cell_args(cell, args, torch, device, seed, held)
-        torch.cuda.synchronize()
-        t_make = time.perf_counter() - t0
-        before = (leaves_of(cargs[0]["params"])[0].detach().clone()
-                  if cell.kind == "train" else None)
-        reset(kern)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with compat.use_mesh(mesh_card):
-            out = run_fn(*cargs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak_card = torch.cuda.max_memory_allocated()
-        got = {k: fn_.launches for k, fn_ in kern.items()}
-        launches[f"phase 15 {name}"] = got
-        if cell.kind == "train":
-            new_state, metrics = out
-            loss = float(metrics["loss"])
-            require(math.isfinite(loss), f"{name}: loss {loss}")
-            gl, wl = leaves_of(new_state), leaves_of(want[0])
-            after = leaves_of(new_state["params"])[0]
-            require(not torch.equal(before, after), f"{name}: the first parameter leaf did "
-                                                    "not move")
-        else:
-            loss = None
-            gl, wl = leaves_of(out), leaves_of(want)
-        require(len(gl) == len(wl) and all(
-            tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype for g, w in zip(gl, wl)),
-            f"{name}: output shapes {[tuple(g.shape) for g in gl]} != the meta trace's "
-            f"{[tuple(w.shape) for w in wl]}")
-        require(all(bool(torch.isfinite(g.float()).all()) for g in gl if g.is_floating_point()),
-                f"{name}: non-finite outputs")
-        cut = f"batch {CELLS_LM_BATCH} (cut)" if lm else "full"
-        results[name] = dict(run=True, cut=cut, make_s=t_make, wall_ms=wall * 1e3,
-                             peak=peak_card, loss=loss, launches=got,
-                             bytes=arg_bytes + peak)
-        print(f"[15b] {name} at {cut}: made in {t_make:.1f} s, ran in {wall * 1e3:.1f} ms, "
-              f"peak {peak_card} B (trace: args + peak {arg_bytes + peak} B), outputs finite "
-              f"and shaped as the meta trace{'' if loss is None else f', loss {loss:.6g}'}; "
-              f"launches {got}", flush=True)
-        del out, cargs, before
-        gc.collect()
-        torch.cuda.empty_cache()
+    except BaseException:            # the ranks end with the phase
+        ranks.stop()
+        raise
     held.clear()
+    ranks_out = ranks.check(stacked_small)
+    bad = {n: r["why"] for n, r in sharded.items() if not r["ok"]}
+    require(len(sharded) == 12 and not bad, f"phase 15d: {len(sharded)} sharded cells ran; "
+                                            f"failed: {bad}")
+    seconds = sum(r["seconds"] for r in sharded.values())
+    print(f"[15d] the 12 sharded cells took {seconds:.1f} s in the main process (walls, checks "
+          f"and the stacked {SHARDED_RANK_MESH} runs)", flush=True)
+    sharded_out = dict(cells=sharded, ranks=ranks_out, seconds=seconds)
     ran = [n for n, r in results.items() if r["run"]]
     print(f"[15b] {len(ran)} cells ran on the card: {ran}; not run (over "
           f"{CELLS_FIT_BYTES:.0f} B): {[n for n, r in results.items() if not r['run']]}",
@@ -3607,7 +3651,7 @@ def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict
     total = {k: sum(c[k] for c in launches.values()) for k in kern}
     require(all(total[k] > 0 for k in CELLS_ON_PATH) and total["K1"] == total["K3"] == 0,
             f"phase 15b launches {total}: K2, K4, K5, K6 expected, K1 and K3 not")
-    return results, launches
+    return results, launches, sharded_out
 
 
 LM_ARCHS = ("olmoe-1b-7b", "deepseek-v2-236b", "starcoder2-3b", "stablelm-3b", "h2o-danube-1.8b")
@@ -3638,6 +3682,288 @@ def anlessini_args(args, torch, device, seed):
     Q, T = tids.shape
     return (state, torch.from_numpy(rng.integers(0, V, (Q, T)).astype(np.int32)).to(device),
             torch.from_numpy(rng.integers(1, 3, (Q, T)).astype(np.float32)).to(device))
+
+
+def sharded_expect(cell, mesh) -> dict:
+    """The launches of a recsys cell's sharded function on ``mesh``, from
+    its body: fm's first-order term one K6 (its pooled lookup), dcn-v2 no
+    kernel (row gathers and GEMMs), bst one K5 a block; bert4rec per chunk
+    of each shard's sequences its blocks' K5 and a top-k over the shard's
+    vocabulary rows, then one top-k merging the (B, k·M) survivors; a
+    retrieval its user tower (fm, dcn-v2: one K6; bst, bert4rec: K5 a
+    block), one K4 a partition with its K2 merges, then one top-k merging
+    the (1, k·data) survivors."""
+    from repro_torch.kernels.dot_topk import survivors
+    from repro_torch.models.recsys import bert4rec_chunk
+    cfg = cell.fn.keywords["cfg"]
+    L, M = mesh.size, mesh.shape["model"]
+    tower = {"K6": 1} if cfg.kind in ("fm", "dcn") else {"K5": cfg.n_blocks}
+    if cell.kind == "retrieval":
+        N = cell.args[2].shape[0]
+        n, k = N // mesh.shape["data"], min(100, N)
+        k_loc = min(k, n)
+        return {**tower, "K4": L, "K2": L * merge_rounds(survivors(n, k_loc), k_loc)
+                + topk_launches(k_loc * mesh.shape["data"], k)}
+    if cfg.kind != "bert4rec":
+        return {"fm": {"K6": 1}, "dcn": {}, "bst": {"K5": cfg.n_blocks}}[cfg.kind]
+    V = cfg.n_items + 2
+    b = cell.args[1]["seq"].shape[0] // (L // M)
+    v_loc, k = V // M, min(100, cfg.n_items)
+    k_loc = min(k, v_loc)
+    chunks = -(-b // min(b, bert4rec_chunk(L * v_loc, V)))
+    return {"K5": cfg.n_blocks * chunks,
+            "K2": chunks * topk_launches(v_loc, k_loc) + topk_launches(k_loc * M, k)}
+
+
+def pooled_tol(cell, cargs, want, torch):
+    """Where the sharded K6 sums a bag in another order (shard by shard,
+    then the psum): the bound on |sharded − unsharded|. Two orders of an
+    F-term sum differ by at most 2·(F-1)·2⁻²⁴·Σ_f|row_f| a dimension. fm's
+    logit: that bound on the first-order term, plus 2⁻²² of the logit's
+    terms (|bias| + Σ|w_f| + |logit|) for the two adds after it. A
+    retrieval score: each user vector dimension's bound δu_d (dcn-v2's
+    mean: δu_d / F and the division's rounding, 2⁻²³·|u_d|), as Σ_d
+    |c_d|·δu_d, plus the two D-term dots' rounding, 2·γ_D·Σ_d|c_d|·(|u_d| +
+    δu_d). Returns the bound a value (float64, on the card), or None where
+    no bag is summed (the sharded run must then be bitwise)."""
+    from repro_torch.models.recsys import _flat_ids
+    cfg = cell.fn.keywords["cfg"]
+    pooled = cfg.kind in ("fm", "dcn") and (cell.kind == "retrieval" or cfg.kind == "fm")
+    if not pooled:
+        return None
+    params, batch = cargs[0], cargs[1]
+    ids = _flat_ids(cfg, batch["sparse"]).long()
+    F = ids.shape[1]
+    if cell.kind == "serve":
+        w = params["linear"].double()[ids][..., 0].abs().sum(1)
+        return (2 * (F - 1) * UNIT * w + 4 * UNIT * (
+            params["bias"].double().abs() + w + want.double().abs()))
+    rows = params["emb"].double()[ids[0]]                    # (F, D)
+    u, du = rows.sum(0), 2 * (F - 1) * UNIT * rows.abs().sum(0)
+    if cfg.kind == "dcn":
+        u, du = u / F, du / F + 2 * UNIT * (u / F).abs()
+    c = cargs[2].double()[want[1].long()].abs()              # (k, D)
+    D = c.shape[1]
+    gamma = D * UNIT / (1 - D * UNIT)
+    return c @ du + 2 * gamma * (c @ (u.abs() + du))
+
+
+def shape_twin(cell, cargs, mesh):
+    """The unsharded function at the sharded body's GEMM shapes: the cell's
+    plain ``fn`` on its batch laid out as the partitions of ``mesh`` hold it
+    (each partition's block in turn, ``StackedMesh.shard``), its outputs
+    joined as the sharded function joins them. The body runs its towers
+    and encoders once over all the rows the partitions hold, so a GEMM
+    there sees those rows, not the batch's; this run sees the same. None
+    for bert4rec's serve, whose vocabulary GEMMs are per shard."""
+    cfg = cell.fn.keywords["cfg"]
+    if cell.kind == "serve" and cfg.kind == "bert4rec":
+        return None
+    from repro_torch.parallel.compat import P
+    specs = cell.in_specs[1]
+    rows = {k: mesh.shard(v, specs[k]).flatten(0, 1) for k, v in cargs[1].items()}
+    out = cell.fn(cargs[0], rows, *cargs[2:])
+    if cell.kind == "retrieval":
+        return out
+    return mesh.unshard(out.view(mesh.size, -1), P(next(iter(specs.values()))[0]))
+
+
+def sharded_compare(name, cell, cargs, want, got, mesh, torch) -> dict:
+    """A sharded cell's outputs against the unsharded run's on the same
+    inputs: shapes and dtypes equal, then one of three, each named in the
+    record's ``held``:
+
+    * ``bitwise``: every output the unsharded run's bits;
+    * ``pooled-sum order bound``: where the sharded K6 sums a bag in another
+      order (:func:`pooled_tol`), values within the bound and ids equal but
+      where the two values lie within it;
+    * ``GEMM shapes``: where a GEMM of the body sees other rows than the
+      whole batch's, every output the bits of :func:`shape_twin` (the same
+      function at the body's shapes); ``max_abs_err`` is then the GEMM
+      shapes' effect on the values.
+
+    ``swaps`` counts ids that differ from the unsharded run's. Returns the
+    comparison; ``ok`` False says what failed."""
+    wl, gl = leaves_of(want), leaves_of(got)
+    if [(tuple(g.shape), g.dtype) for g in gl] != [(tuple(w.shape), w.dtype) for w in wl]:
+        return dict(ok=False, why=f"shapes {[tuple(g.shape) for g in gl]} != "
+                                  f"{[tuple(w.shape) for w in wl]}")
+    tol = pooled_tol(cell, cargs, want, torch)
+    gv, wv = gl[0], wl[0]
+    r = dict(ok=True, bits=all(bits_equal(g, w) for g, w in zip(gl, wl)),
+             max_abs_err=max_abs_err(gv, wv),
+             swaps=int((gl[1] != wl[1]).sum()) if len(gl) == 2 else 0)
+    if tol is not None:
+        ratio = float(((gv.double() - wv.double()).abs() / tol).max())
+        tied = len(gl) < 2 or not bool(
+            ((gv.double() - wv.double()).abs() > tol)[gl[1] != wl[1]].any())
+        r.update(held=f"pooled-sum order bound ({ratio:.3g} of it)", err_over_bound=ratio,
+                 ok=ratio <= 1.0 and tied)
+        if not r["ok"]:
+            r["why"] = f"{ratio:.3g} of the pooled-sum bound; ids tie where they differ: {tied}"
+    elif r["bits"]:
+        r["held"] = "bitwise"
+    else:
+        twin = shape_twin(cell, cargs, mesh)
+        same = twin is not None and all(bits_equal(g, t) for g, t in zip(gl, leaves_of(twin)))
+        r.update(held="GEMM shapes: bitwise to the unsharded function at the body's shapes",
+                 ok=same)
+        if not same:
+            r["why"] = (f"not bitwise (max |Δ| {r['max_abs_err']:.3g}), and "
+                        f"{'no' if twin is None else 'not the bits of the'} same-shape run")
+    return r
+
+
+def sharded_cell(name, cell, cargs, want, kern, torch, device) -> tuple[dict, dict]:
+    """Phase 15(d) for one recsys serve or retrieval cell, right after its
+    unsharded run in (b) on the same inputs: ``cell.build`` over its stacked
+    mesh (SHARDED_MESHES) on the card, its launches counted against
+    :func:`sharded_expect`, its wall and peak, its outputs against the
+    unsharded ones (:func:`sharded_compare`). A SHARDED_RANK_CELLS cell also
+    runs on a stacked SHARDED_RANK_MESH, and the rank mesh's outputs are
+    held bitwise to the run whose GEMMs see the rank's rows: that stacked
+    run where the body has no GEMM (fm: gathers, K6 and a psum over 2, in
+    either order the same sum), else the unsharded run (the rank holds the
+    whole batch of the mesh's one data block). Returns (the record, those
+    outputs on the host, each beside the stacked run's)."""
+    from repro_torch.parallel.compat import StackedMesh
+    t_cell = time.perf_counter()
+    mesh = StackedMesh(SHARDED_MESHES[cell.shape], ("data", "model"), device=device)
+    fn = cell.build(mesh)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset(kern)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = fn(*cargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = counted(kern, f"phase 15d {name}", sharded_expect(cell, mesh))
+    r = sharded_compare(name, cell, cargs, want, got, mesh, torch)
+    r.update(mesh=list(SHARDED_MESHES[cell.shape]), wall_ms=wall * 1e3, peak=peak,
+             launches=launches)
+    del got
+    host = {}
+    if name in SHARDED_RANK_CELLS:
+        small = StackedMesh(SHARDED_RANK_MESH, ("data", "model"), device=device)
+        out = leaves_of(cell.build(small)[0](*cargs))
+        gemm = pooled_tol(cell, cargs, want, torch) is None
+        for i, (t, w) in enumerate(zip(out, leaves_of(want))):
+            host[f"{name}/{i}"] = ((w if gemm else t).cpu().numpy(), t.cpu().numpy())
+        del out
+    r["seconds"] = time.perf_counter() - t_cell
+    print(f"[15d] {name} on a stacked {tuple(r['mesh'])} mesh: {r['wall_ms']:.1f} ms, peak "
+          f"{peak} B, launches {launches}; against the unsharded run: {r.get('held')}, "
+          f"max |Δ| {r['max_abs_err']:.3g}, ids swapped {r['swaps']}"
+          f"{'' if r['ok'] else ' - FAILED: ' + r['why']}", flush=True)
+    return r, host
+
+
+class ServingRanks:
+    """Phase 15(d)'s rank mesh: CELLS_RANKS processes of :func:`serving_rank`,
+    started with (b) and running beside it; :meth:`check` waits for them and
+    holds each rank's outputs to the stacked SHARDED_RANK_MESH run's, bit for
+    bit."""
+
+    def __init__(self, seed: int, device="cuda", reduced: bool = False):
+        import tempfile
+
+        import torch.multiprocessing as mp
+        self.tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serving_")
+        self.t0 = time.perf_counter()
+        self.procs = mp.start_processes(serving_rank,
+                                        args=(CELLS_RANKS, self.tmp.name, seed, str(device),
+                                              reduced),
+                                        nprocs=CELLS_RANKS, join=False, start_method="spawn")
+
+    def stop(self) -> None:
+        """End the rank processes that are still running."""
+        for proc in self.procs.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+
+    def check(self, host: dict) -> dict:
+        """Wait for the ranks; each output bitwise to ``host``'s reference
+        run (the first of each pair), beside the stacked run's (the second:
+        its largest difference printed)."""
+        try:
+            while not self.procs.join():
+                pass
+        finally:
+            self.stop()
+        wall = time.perf_counter() - self.t0
+        outs = [dict(np.load(Path(self.tmp.name) / f"serving_rank{r}.npz"))
+                for r in range(CELLS_RANKS)]
+        self.tmp.cleanup()
+        rank_s = [float(out.pop("seconds")) for out in outs]
+
+        def bits(a):
+            return a.view(np.uint32) if a.dtype == np.float32 else a
+        differ, to_stacked = {}, {}
+        for r, out in enumerate(outs):
+            require(sorted(out) == sorted(host), f"rank {r}: outputs {sorted(out)}")
+            for key, (want, stacked) in host.items():
+                got = out[key]
+                if got.shape != want.shape or not np.array_equal(bits(got), bits(want)):
+                    differ[f"rank {r} {key}"] = float(np.abs(
+                        got.astype(np.float64) - want.astype(np.float64)).max())
+                to_stacked[key] = max(to_stacked.get(key, 0.0), float(np.abs(
+                    got.astype(np.float64) - stacked.astype(np.float64)).max()))
+        require(not differ, f"phase 15d: the rank mesh != the run with its GEMM shapes: {differ}")
+        print(f"[15d] {SHARDED_RANK_CELLS} over a {SHARDED_RANK_MESH} rank mesh of "
+              f"{CELLS_RANKS} gloo processes on the card (each holding half of the tables): "
+              f"bit for bit, on every rank, the stacked {SHARDED_RANK_MESH} run where the body "
+              f"has no GEMM (fm), else the unsharded run (the same GEMM rows); max |Δ| to the "
+              f"stacked run {to_stacked}; each rank {max(rank_s):.1f} s at most in its process, "
+              f"beside (b), joined {wall:.1f} s from their start", flush=True)
+        return dict(cells=list(SHARDED_RANK_CELLS), mesh=list(SHARDED_RANK_MESH),
+                    ranks=CELLS_RANKS, rank_s=rank_s, joined_s=wall, bitwise=True,
+                    max_abs_to_stacked=to_stacked)
+
+
+def serving_rank(rank: int, world: int, tmp: str, seed: int, device: str = "cuda",
+                 reduced: bool = False) -> None:
+    """One rank of phase 15(d)'s rank mesh: a gloo process group over a
+    FileStore in ``tmp``, a SHARDED_RANK_MESH rank mesh on the card, and
+    SHARDED_RANK_CELLS' sharded functions on (b)'s seeded inputs (each
+    arch's parameters made at its first cell, as (b) makes them), each
+    rank holding its half of the tables; the outputs to
+    ``tmp/serving_rank<r>.npz``. ``reduced`` (the configs' reduced cells)
+    rehearses it on the CPU."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import build_cells
+    from repro_torch.parallel.compat import RankMesh
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(tmp) / "serving_store"),
+                                                         world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = RankMesh(SHARDED_RANK_MESH, ("data", "model"), device=device)
+        out = {}
+        for arch in RECSYS_ARCHS:
+            held: dict = {}
+            cells = build_cells(arch, reduced=reduced)
+            for name in [n for n in SHARDED_RANK_CELLS if n.split("/")[0] == arch]:
+                cell = cells[name.split("/")[1]]
+                cargs = cell_args(cell, cell.args, torch, device, seed, held)
+                res = cell.build(mesh)[0](*cargs)
+                out.update({f"{name}/{i}": t.cpu().numpy() for i, t in enumerate(leaves_of(res))})
+                del cargs, res
+            held.clear()
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        np.savez(Path(tmp) / f"serving_rank{rank}.npz", **out,
+                 seconds=np.float64(time.perf_counter() - t0))
+    finally:
+        dist.destroy_process_group()
 
 
 def launcher_rank(rank: int, world: int, tmp: str) -> None:
@@ -3739,7 +4065,7 @@ def cells_phase(kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     dry = DryRun(jobs=max(1, min(CELLS_JOBS, (os.cpu_count() or 2) - 1)))
-    results, launches = cells_on_card(dry, kern, torch, device, seed)
+    results, launches, sharded = cells_on_card(dry, kern, torch, device, seed)
     t_b = time.perf_counter() - t_phase
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as tmp:
         t_c = time.perf_counter()
@@ -3754,12 +4080,13 @@ def cells_phase(kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
     seconds = time.perf_counter() - t_phase
     print(f"[15] phase 15 took {seconds:.1f} s (dry run {summary['wall_s']:.1f} beside the "
           f"cells on the card {t_b:.1f}, launcher {t_c:.1f})", flush=True)
-    return dict(dry_run=summary, cells=results, launcher=launcher, seconds=seconds), launches
+    return dict(dry_run=summary, cells=results, sharded=sharded, launcher=launcher,
+                seconds=seconds), launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--docs", type=int, default=500_000,
+    ap.add_argument("--docs", type=int, default=250_000,
                     help="passages of phases 3-6's corpus (the single node and the fleet)")
     ap.add_argument("--lm-only", action="store_true",
                     help="phases 1, 2 and 7 only (a shake-out of the LM path; prints no "

@@ -378,6 +378,7 @@ def recsys_cells(arch: str, cfg, rules: ShardRules, *, reduced: bool = False,
             args = (abstract_params(defs), batch)
             specs = (pspecs, _resolve_batch_specs(tags, rules))
             cells[sname] = CellSpec(arch, sname, kind, fn, args, specs)
+            cells[sname].build = _recsys_sharded_build(cfg, kind, args, specs)
         elif kind == "retrieval":
             batch, tags = _recsys_batch(cfg, B, train=False, reduced=reduced)
             cand = SDS((sh["cands"], cfg.embed_dim), torch.float32)
@@ -385,7 +386,25 @@ def recsys_cells(arch: str, cfg, rules: ShardRules, *, reduced: bool = False,
             args = (abstract_params(defs), batch, cand)
             specs = (pspecs, _resolve_batch_specs_repl(tags), P("data", None))
             cells[sname] = CellSpec(arch, sname, kind, fn, args, specs)
+            cells[sname].build = _recsys_sharded_build(cfg, kind, args, specs)
     return cells
+
+
+def _recsys_sharded_build(cfg, kind: str, args: tuple, specs: tuple) -> Callable:
+    """A serve or retrieval cell's late binding: ``build(mesh) -> (fn, args,
+    specs)``, ``fn`` the cell's sharded function over ``mesh``
+    (:func:`repro_torch.models.recsys.sharded_cell_fn`) under the cell's own
+    specs; ``args`` and ``specs`` cut to the parts ``fn`` reads
+    (:func:`repro_torch.models.recsys.sharded_reads`), as the reference's
+    jit keeps only the arguments it uses. ``cell.fn`` stays the plain
+    adapter, the reference's function."""
+    def build(mesh):
+        from repro_torch.models.recsys import sharded_cell_fn, sharded_reads
+        k = min(100, cfg.n_items) if cfg.kind == "bert4rec" and kind == "serve" else 100
+        fn = sharded_cell_fn(cfg, kind, mesh, specs, k=k)
+        return (fn, (*sharded_reads(cfg, kind, *args[:2]), *args[2:]),
+                (*sharded_reads(cfg, kind, *specs[:2]), *specs[2:]))
+    return build
 
 
 def _resolve_batch_specs_repl(tags: dict):

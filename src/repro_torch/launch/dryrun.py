@@ -44,8 +44,15 @@ cell, what the port's sharded step
 specs (:func:`~repro_torch.train.steps.sharded_step_collectives`: the
 step's own gather and reduction, run on meta blocks); for a cell that runs a
 ``shard_map`` body (expert-parallel MoE, the mesh search), what its
-collectives move on a rank mesh of that shape; otherwise ``null``: the port
-has no sharded implementation of that cell.
+collectives move on a rank mesh of that shape — among these the recsys
+``serve`` and ``retrieval`` cells, whose ``build(mesh)`` gives the
+sharded function (:func:`repro_torch.models.recsys.sharded_cell_fn`:
+tables row-sharded over ``model``, the ranks along ``model`` repeating
+the towers and encoders, which the note says); otherwise ``null``: the
+port has no sharded implementation of that cell. A meta mesh traces a
+sharded function's dimension that does not split evenly at its padded
+block; the note says so where an argument does not split (a run on values
+refuses it).
 
 Records go to ``build/dryrun/<mesh>/<arch>__<shape>.json`` at the
 repository root unless ``--out`` says otherwise; an existing ok or skip
@@ -83,6 +90,10 @@ TRAIN_SPLIT = ("per_device is that ideal split, not the port's sharded step, whi
                "the whole compute on the ranks along model and holds the gathered parameters "
                "and the whole gradient on every rank; collectives are that step's")
 NO_SHARDED = "the port has no sharded implementation of this cell: collectives not counted"
+MODEL_REPEATS = ("the port's sharded function repeats the dense towers and encoders on the "
+                 "ranks along model (recsys_rules replicate mlp and heads)")
+UNEVEN = ("an argument does not split evenly over its axes: traced at its padded block, as "
+          "GSPMD pads it; a run on values refuses this split")
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"}
 
 
@@ -151,6 +162,17 @@ def local_bytes(t: torch.Tensor, spec, mesh) -> int:
     """One device's block of ``t`` placed by ``spec``: each dimension split
     over its axes, rounded up where it does not split evenly."""
     return math.prod(mesh.block_shape(t.shape, spec, pad=True)) * t.element_size()
+
+
+def _uneven(args, specs, mesh) -> bool:
+    """Whether an argument leaf does not split evenly under its spec."""
+    for t, s in zip(_leaves(args), spec_leaves(specs)):
+        if isinstance(t, torch.Tensor):
+            try:
+                mesh.block_shape(t.shape, s)
+            except ValueError:
+                return True
+    return False
 
 
 def argument_bytes(args, specs, mesh) -> int:
@@ -252,8 +274,12 @@ def run_cell(name: str, cell, mesh, mesh_name: str, out_dir, *, force: bool = Fa
         notes = [EVEN_SPLIT]
         if cell.kind == "train":
             notes.append(TRAIN_SPLIT)
+        if cell.kind in ("serve", "retrieval") and cell.fn is not None and hasattr(cell, "build"):
+            notes.append(MODEL_REPEATS)
         if r["collectives"] is None:
             notes.append(NO_SHARDED)
+        if hasattr(cell, "build") and _uneven(r["args"], r["specs"], mesh):
+            notes.append(UNEVEN)
         rec = {
             "cell": name, "mesh": mesh_name, "ok": True,
             "kind": cell.kind,

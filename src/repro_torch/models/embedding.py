@@ -7,6 +7,10 @@
   table shard per rank, or all stacked on one card): each shard gathers the
   rows it owns, zeros elsewhere, and the sum over the ``"model"`` axis
   rebuilds the lookup exactly (one shard contributes each row).
+* ``sharded_bag_local`` — K6's pooled sum over row-sharded tables inside a
+  shard_map body: each shard's rows summed by one K6 launch for all the
+  shards held, then a ``psum`` of the (…, D) partial sums over ``"model"``
+  (a sum in another order than the unsharded K6's).
 * ``embedding_bag`` — ``torch.nn.EmbeddingBag`` semantics in the offsets
   form: the ragged bags are laid out as padded ``(n_bags, L_max)`` ids and
   weights (pad id -1) and summed by K6
@@ -50,6 +54,33 @@ def sharded_lookup_local(table_shard: torch.Tensor, idx: torch.Tensor,
     vals = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                         device=rows.device))
     return compat.psum(vals, axis_name)
+
+
+def sharded_bag_local(table_shard: torch.Tensor, idx: torch.Tensor,
+                      axis_name: str = "model") -> torch.Tensor:
+    """Inside shard_map: K6's pooled sum ``Σ_f table[idx[..., f]]`` over
+    row-sharded tables. Each shard sums the rows it owns (an id it does
+    not own becomes K6's pad id -1), all shards' blocks in one K6 launch
+    (the (L, R_local, D) blocks flattened, each shard's ids offset by its
+    place in them), then ``psum`` over ``axis_name`` adds the (..., D)
+    partial sums in shard order. ``table_shard`` (L, R_local, D), ``idx``
+    (L, ..., F) global ids → (L, ..., D) f32.
+
+    The sum's order is not the unsharded K6's (each bag's slots in turn):
+    a shard's slots, then the shards. Two orders of F terms differ by at
+    most 2·(F-1)·2⁻²⁴·Σ_f|row_f| in each dimension."""
+    L, R_local, D = table_shard.shape
+    if L * R_local >= 2 ** 31:
+        raise ValueError(f"{L} blocks of {R_local} rows exceed K6's int32 ids")
+    lead = idx.shape[:-1]
+    shard = compat.axis_index(axis_name).view(L, *[1] * (idx.dim() - 1))
+    local = idx.long() - shard * R_local
+    ok = (local >= 0) & (local < R_local)
+    base = torch.arange(L, device=idx.device).view(L, *[1] * (idx.dim() - 1)) * R_local
+    flat = torch.where(ok, local + base, -1).to(torch.int32).reshape(-1, idx.shape[-1])
+    ones = torch.ones(flat.shape, dtype=torch.float32, device=flat.device)
+    partial = _k6(table_shard.reshape(L * R_local, D), flat, ones)
+    return compat.psum(partial.view(*lead, D), axis_name)
 
 
 def sharded_lookup_shardmap(mesh, table, idx, *, axis_name: str = "model",

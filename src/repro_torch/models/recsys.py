@@ -33,6 +33,16 @@ Where the kernels sit:
   mesh's ``"model"`` axis (:mod:`repro_torch.parallel.compat`) and merges
   the k·M survivors, each step on K2.
 
+Sharded serving (:func:`sharded_cell_fn`, the recsys ``serve`` and
+``retrieval`` cells' ``build(mesh)``) runs the same forwards as bodies of
+a ``compat.shard_map`` under the cells' specs: the tables row-sharded over
+``"model"`` (rows by the exact masked gather + psum, pooled bags by
+:func:`~repro_torch.models.embedding.sharded_bag_local`), the batch over the
+batch axes, the towers and encoders on every partition's rows, bert4rec's
+top-k per vocabulary shard and a K2 merge, a retrieval's candidates over
+``"data"`` ranked on K4 per partition and merged by K2. The unsharded
+functions above are unchanged.
+
 Every serving entry point takes ``device=None`` (the card; it raises
 without one) or ``device="cpu"``; the parameters must already live there,
 and it runs under ``torch.inference_mode()``.
@@ -48,6 +58,7 @@ parameters' device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -59,7 +70,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.attention import attention
 from repro_torch.models.common import (ParamDef, count_params, dense, layer_norm, mlp_stack,
                                        mlp_stack_defs, tree_leaves)
-from repro_torch.models.embedding import embedding_lookup
+from repro_torch.models.embedding import embedding_lookup, sharded_bag_local, sharded_lookup_local
 from repro_torch.models.gather import gather_rows
 from repro_torch.parallel import compat
 from repro_torch.parallel.compat import P
@@ -196,10 +207,14 @@ def _fm(params, batch, cfg: RecsysConfig, dev, train: bool):
         lin = torch.sum(gather_rows(params["linear"], ids)[..., 0], dim=1)
     else:
         lin = kops.embedding_bag(params["linear"], ids, _ones(ids))[:, 0]
-    # 2-way term via the O(nk) identity: ½[(Σv)² − Σv²] summed over dims
-    s = torch.sum(v, dim=1)                                   # (B,D)
-    pair = 0.5 * torch.sum(s * s - torch.sum(v * v, dim=1), dim=-1)
-    return params["bias"][0] + lin.to(cfg.dtype) + pair
+    return params["bias"][0] + lin.to(cfg.dtype) + _fm_pair(v)
+
+
+def _fm_pair(v: torch.Tensor) -> torch.Tensor:
+    """FM's 2-way term of (..., F, D) rows via the O(nk) identity:
+    ½[(Σ_f v)² − Σ_f v²] summed over dims → (...)."""
+    s = torch.sum(v, dim=-2)                                  # (...,D)
+    return 0.5 * torch.sum(s * s - torch.sum(v * v, dim=-2), dim=-1)
 
 
 @torch.inference_mode()
@@ -219,6 +234,11 @@ def _dcn(params, batch, cfg: RecsysConfig, dev, train: bool):
     ids = _flat_ids(cfg, _on(dev, batch["sparse"]))
     v = _lookup(params["emb"], ids, train)                    # (B,F,D)
     x0 = torch.cat([_on(dev, batch["dense"]).to(cfg.dtype), v.reshape(v.shape[0], -1)], -1)
+    return _dcn_tower(params, x0, cfg)
+
+
+def _dcn_tower(params, x0, cfg: RecsysConfig):
+    """The cross layers, the deep tower and the head over (B, d0) rows."""
     x = x0
     for i in range(cfg.n_cross_layers):
         xw = dense(x, params[f"cross_w{i}"]) + params[f"cross_b{i}"]
@@ -244,7 +264,11 @@ def _tx_block(p, x, n_heads: int, impl=None):
 
 def _encode(params, seq: torch.Tensor, cfg: RecsysConfig, train: bool = False) -> torch.Tensor:
     """Item embeddings + positions through the blocks: (B,S) → (B,S,D)."""
-    x = _lookup(params["item_emb"], seq, train)
+    return _encoder(params, _lookup(params["item_emb"], seq, train), cfg, train)
+
+
+def _encoder(params, x: torch.Tensor, cfg: RecsysConfig, train: bool = False) -> torch.Tensor:
+    """Positions added to the item rows (B,S,D), then the blocks."""
     x = x + params["pos_emb"][None, : x.shape[1]]
     for i in range(cfg.n_blocks):
         x = _tx_block(params[f"b{i}"], x, cfg.n_heads, "chunked" if train else None)
@@ -450,3 +474,179 @@ def retrieval_topk(params, batch, cfg: RecsysConfig, cand, k: int = 100, *,
     if use_kernel:
         return kops.dot_topk(u, cand, k)
     return kops.topk(cand @ u, k)
+
+
+# -- sharded serving: the serve and retrieval cells over a mesh ---------------------
+
+ROW_TABLES = ("emb", "linear", "item_emb", "out_b")   # the leaves whose rows shard over model
+
+
+def _replicated(params: dict) -> dict:
+    """Inside a body: every leaf but the row-sharded tables, as its first
+    copy. The specs replicate them, so the partitions held carry one value,
+    and the towers and encoders run once over all the rows held."""
+    return {key: _replicated(v) if isinstance(v, dict) else v[0]
+            for key, v in params.items() if key not in ROW_TABLES}
+
+
+def _rows_local(params, seq: torch.Tensor) -> torch.Tensor:
+    """(L, b, S) item ids → (L·b, S, D) item rows: the masked gather of each
+    shard's rows and the psum over ``model`` (exact)."""
+    return sharded_lookup_local(params["item_emb"], seq).flatten(0, 1)
+
+
+def _fm_local(params, batch, cfg: RecsysConfig):
+    ids = _flat_ids(cfg, batch["sparse"])                     # (L,b,F)
+    v = sharded_lookup_local(params["emb"], ids)              # (L,b,F,D)
+    lin = sharded_bag_local(params["linear"], ids)[..., 0]    # (L,b), one K6 launch
+    return params["bias"][:, :1] + lin.to(cfg.dtype) + _fm_pair(v)
+
+
+def _dcn_local(params, batch, cfg: RecsysConfig):
+    ids = _flat_ids(cfg, batch["sparse"])
+    L, b = ids.shape[:2]
+    v = sharded_lookup_local(params["emb"], ids)
+    x0 = torch.cat([batch["dense"].to(cfg.dtype), v.reshape(L, b, -1)], -1)
+    return _dcn_tower(_replicated(params), x0.flatten(0, 1), cfg).view(L, b)
+
+
+def _bst_local(params, batch, cfg: RecsysConfig):
+    seq = torch.cat([batch["seq"], batch["target"][..., None]], dim=-1)
+    L, b = seq.shape[:2]
+    rep = _replicated(params)
+    x = _encoder(rep, _rows_local(params, seq), cfg)
+    return mlp_stack(rep["mlp"], x.reshape(L * b, -1))[..., 0].view(L, b)
+
+
+def bert4rec_chunk(rows_held: int, vocab: int, chunk: int = BERT4REC_CHUNK) -> int:
+    """Sequences a sharded body scores at a time when its partitions hold
+    ``rows_held`` vocabulary rows in all: the (sequences, rows) tile stays
+    at most ``chunk`` × ``vocab`` scores, as the unsharded one."""
+    return max(1, chunk * vocab // max(rows_held, 1))
+
+
+def _bert4rec_local(params, batch, cfg: RecsysConfig, k: int):
+    """Each shard's next-item top-k over its vocabulary rows, chunk by
+    chunk of its block of sequences (padded with [PAD] to the chunk, which
+    is never larger than the block): (L, b, k) values and global ids. The
+    scoring of :func:`_sharded_vocab_topk`, whose query rows are replicated
+    (one GEMM meets every shard held); here each partition holds its own
+    block of the batch, so each scores its rows against its shard."""
+    seq = batch["seq"]
+    L, b = seq.shape[:2]
+    el, bl = params["item_emb"], params["out_b"]              # (L,V_l,D), (L,V_l)
+    v_loc = el.shape[1]
+    k_loc = min(k, v_loc)
+    first = (compat.axis_index("model") * v_loc).to(torch.int32).view(L, 1, 1)
+    rep = _replicated(params)
+    chunk = min(b, bert4rec_chunk(L * v_loc, cfg.n_items + 2))
+    pad = (-b) % chunk
+    if pad:
+        seq = F.pad(seq, (0, 0, 0, pad), value=cfg.n_items)
+    vals, ids = [], []
+    for s in seq.split(chunk, dim=1):
+        x = _encoder(rep, _rows_local(params, s), cfg)[:, -1].view(L, chunk, -1)
+        logits = x @ el.transpose(1, 2) + bl[:, None, :]      # (L,chunk,V_l)
+        v, i = kops.topk(logits.float().reshape(L * chunk, v_loc), k_loc)
+        vals.append(v.view(L, chunk, k_loc))
+        ids.append(i.view(L, chunk, k_loc) + first)
+    return torch.cat(vals, 1)[:, :b], torch.cat(ids, 1)[:, :b]
+
+
+def _user_local(params, batch, cfg: RecsysConfig) -> torch.Tensor:
+    """``user_vector`` inside a body: (L, b, D). FM and DCN-v2 pool their
+    fields' rows with :func:`sharded_bag_local` (one K6 launch)."""
+    if cfg.kind in ("fm", "dcn"):
+        u = sharded_bag_local(params["emb"], _flat_ids(cfg, batch["sparse"])).to(cfg.dtype)
+        if cfg.kind == "dcn":                                 # the mean: sum, then / F
+            u = u / torch.tensor(float(cfg.n_sparse), dtype=u.dtype, device=u.device)
+        return u
+    L, b = batch["seq"].shape[:2]
+    x = _encoder(_replicated(params), _rows_local(params, batch["seq"]), cfg)
+    u = torch.mean(x, dim=1) if cfg.kind == "bst" else x[:, -1]
+    return u.view(L, b, -1)
+
+
+def _retrieval_local(params, batch, cand, cfg: RecsysConfig, k: int):
+    """The query's user vector (replicated), then each partition's top-k
+    of its block of candidates on K4, its ids made global by the block's
+    first row: (L, 1, k_local) values and ids."""
+    u = _user_local(params, batch, cfg)[:, 0].float()         # (L,D)
+    L, n = cand.shape[:2]
+    k_loc = min(k, n)
+    first = (compat.axis_index("data") * n).to(torch.int32)
+    vals, ids = [], []
+    for p in range(L):
+        v, i = kops.dot_topk(u[p], cand[p].float(), k_loc)
+        vals.append(v)
+        ids.append(i + first[p])
+    return torch.stack(vals)[:, None], torch.stack(ids)[:, None]
+
+
+_SERVE_BODIES = {"fm": _fm_local, "dcn": _dcn_local, "bst": _bst_local}
+
+
+def sharded_reads(cfg: RecsysConfig, kind: str, params: dict, batch: dict) -> tuple[dict, dict]:
+    """The parts of a cell's parameter and batch trees (values or specs)
+    that its sharded function reads: all for ``serve``; for ``retrieval``
+    the user tower's alone (the reference's jit drops the rest, its
+    ``keep_unused`` being off)."""
+    if kind != "retrieval":
+        return params, batch
+    if cfg.kind in ("fm", "dcn"):
+        keys, feats = ["emb"], ["sparse"]
+    else:
+        keys, feats = ["item_emb", "pos_emb"] + [f"b{i}" for i in range(cfg.n_blocks)], ["seq"]
+    return {k: params[k] for k in keys}, {k: batch[k] for k in feats}
+
+
+def sharded_cell_fn(cfg: RecsysConfig, kind: str, mesh, specs: tuple, *, k: int = 100):
+    """A recsys ``serve`` or ``retrieval`` cell's function over ``mesh``: its
+    body in a ``compat.shard_map`` under the cell's ``specs`` (tables
+    row-sharded over ``model``, the batch over the batch axes, a
+    retrieval's candidates over ``data``). Takes the cell's arguments, with
+    the parameters already on the mesh's device, and returns what the
+    plain cell returns (it reads only :func:`sharded_reads`' parts):
+
+    * ``serve``: logits (B,), each batch block's forward on its
+      partitions; bert4rec's (vals, ids) (B, k): each vocabulary shard's
+      top-k of its rows, gathered over ``model`` by the out-spec, then one
+      K2 merge of the (B, k·M) rows;
+    * ``retrieval``: (vals, ids) (k,) of the one query: each ``data``
+      block's top-k on K4, gathered over ``data`` by the out-spec, then
+      one K2 merge. Lowest ids win ties: the blocks are in id order.
+
+    A dimension that does not split evenly over its axes is refused
+    (``ValueError``), as the reference's jit refuses it; a meta mesh traces
+    it at its padded block (:meth:`~repro_torch.parallel.compat.StackedMesh.shard`)
+    and the output is cut back to the batch."""
+    pspecs, bspecs = sharded_reads(cfg, kind, specs[0], specs[1])
+    if kind == "retrieval":
+        body = functools.partial(_retrieval_local, cfg=cfg, k=k)
+        out = (P(None, "data"), P(None, "data"))
+    elif cfg.kind == "bert4rec":
+        body = functools.partial(_bert4rec_local, cfg=cfg, k=k)
+        lead = bspecs["seq"][0]
+        out = (P(lead, "model"), P(lead, "model"))
+    else:
+        body = functools.partial(_SERVE_BODIES[cfg.kind], cfg=cfg)
+        out = P(next(iter(bspecs.values()))[0])
+    mapped = compat.shard_map(body, mesh, in_specs=(pspecs, bspecs, *specs[2:]), out_specs=out)
+
+    @torch.inference_mode()
+    def run(params, batch, *cand):
+        have = tree_leaves(params)[0].device
+        if have.type != mesh.device.type:
+            raise ValueError(f"the parameters live on {have}, the mesh on {mesh.device}")
+        params, batch = sharded_reads(cfg, kind, params, batch)
+        if kind == "retrieval":
+            gv, gi = mapped(params, batch, *cand)
+            v, i = merge_topk(gv, gi, min(k, cand[0].shape[0]))
+            return v[0], i[0]
+        B = next(iter(batch.values())).shape[0]
+        if cfg.kind == "bert4rec":
+            gv, gi = mapped(params, batch)
+            return merge_topk(gv[:B], gi[:B], k)
+        return mapped(params, batch)[:B]
+
+    return run

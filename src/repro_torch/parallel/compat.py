@@ -224,13 +224,20 @@ class StackedMesh(Mesh):
         return y.reshape(x.shape)
 
     def shard(self, x: torch.Tensor, spec) -> torch.Tensor:
-        """A global value → (L, *local): partition p's block of it."""
+        """A global value → (L, *local): partition p's block of it. A
+        dimension that does not split evenly raises, except on ``meta``,
+        where no value can change: there it takes its padded block, as
+        GSPMD pads it (the dry run's accounting of such a split)."""
         entries = self._spec(spec, x.dim())
         used = {a for e in entries for a in e}
         if not used:        # replicated: one view, no copy
             return x.unsqueeze(0).expand(self.size, *x.shape)
+        block = self.block_shape(x.shape, spec, pad=self.device.type == "meta")
+        padded = tuple(n * math.prod(self.shape[a] for a in e) for n, e in zip(block, entries))
+        if padded != tuple(x.shape):
+            x = x.new_empty(padded)
         shape, at = [], {}
-        for n, e in zip(self.block_shape(x.shape, spec), entries):
+        for n, e in zip(block, entries):
             for a in e:
                 at[a] = len(shape)
                 shape.append(self.shape[a])

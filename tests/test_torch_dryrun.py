@@ -43,6 +43,12 @@ RECORD_KEYS = {"cell", "mesh", "ok", "kind", "compile_s", "per_device", "collect
 PER_DEVICE = {"flops", "bytes_accessed", "argument_bytes", "output_bytes", "temp_bytes",
               "peak_bytes"}
 COLLECTIVES = {"bytes_by_op", "counts", "total_bytes"}
+SHARDED_SERVING = {f"{arch}/{shape}" for arch in ("fm", "dcn-v2", "bst", "bert4rec")
+                   for shape in ("serve_p99", "serve_bulk", "retrieval_cand")}
+UNSHARDED_LM = {f"{arch}/{shape}" for arch in ("starcoder2-3b", "stablelm-3b", "h2o-danube-1.8b")
+                for shape in ("prefill_32k", "decode_32k")} | {"h2o-danube-1.8b/long_500k"}
+SERVE_MESHES = {"pod2": ((2, 2, 2), True), "pod1": ((4, 2), False)}
+SERVE_BYTES_CELLS = (("dcn-v2", "serve_p99"), ("fm", "retrieval_cand"))
 
 REFERENCE = """
 import json, jax
@@ -126,7 +132,87 @@ def test_reduced_dry_run_needs_no_jax_and_writes_the_reference_keys(tmp_path):
                 assert set(rec["collectives"]) == COLLECTIVES
             elif rec["collectives"] is None:
                 assert "no sharded implementation" in rec["note"]
+            if rec["cell"] in SHARDED_SERVING:
+                assert set(rec["collectives"]) == COLLECTIVES
+                assert rec["collectives"]["total_bytes"] > 0
+                assert dryrun.NO_SHARDED not in rec["note"]
+                assert dryrun.MODEL_REPEATS in rec["note"]
+            if rec["cell"] in UNSHARDED_LM:
+                assert rec["collectives"] is None and dryrun.NO_SHARDED in rec["note"]
+        # the reduced MoE LMs route their experts without EP, so their LM
+        # serving cells join the 7 here; no other cell is left unsharded
+        unsharded = {json.loads(f.read_text())["cell"] for f in files
+                     if dryrun.NO_SHARDED in json.loads(f.read_text()).get("note", "")}
+        assert UNSHARDED_LM <= unsharded and all(
+            c.split("/")[1] in ("prefill_32k", "decode_32k", "long_500k") for c in unsharded)
     assert sorted(p.relative_to(ROOT) for p in (ROOT / "benchmarks").rglob("*")) == before
+
+
+SERVE_REFERENCE = """
+import json, jax
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import build_cells
+from repro.parallel import compat
+meshes, cells = json.loads(%r)
+out = {}
+for mesh_name, (shape, multi_pod) in meshes.items():
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    mesh = compat.make_mesh(tuple(shape), names)
+    for arch, cell_shape in cells:
+        cell = build_cells(arch, multi_pod=multi_pod, reduced=True)[cell_shape]
+        sh = jax.tree_util.tree_map(lambda s: NamedSharding(mesh, s), cell.in_specs,
+                                    is_leaf=lambda x: isinstance(x, P))
+        with compat.use_mesh(mesh):
+            compiled = jax.jit(cell.fn, in_shardings=sh).lower(*cell.args).compile()
+        out[f"{mesh_name} {arch}/{cell_shape}"] = int(
+            compiled.memory_analysis().argument_size_in_bytes)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_serving_bytes():
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", SERVE_REFERENCE % json.dumps(
+        [SERVE_MESHES, SERVE_BYTES_CELLS])], capture_output=True, text=True, env=env,
+        timeout=600)
+    assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mesh_name", sorted(SERVE_MESHES))
+@pytest.mark.parametrize("arch,shape", SERVE_BYTES_CELLS)
+def test_serving_argument_bytes_match_reference(arch, shape, mesh_name,
+                                                reference_serving_bytes, tmp_path):
+    """The sharded serve and retrieval cells' records (traced through
+    ``cell.build``) keep the reference's per-device argument bytes."""
+    mesh_shape, multi_pod = SERVE_MESHES[mesh_name]
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    mesh = StackedMesh(mesh_shape, names, device="meta")
+    cell = build_cells(arch, multi_pod=multi_pod, reduced=True)[shape]
+    rec = dryrun.run_cell(f"{arch}/{shape}", cell, mesh, "test", tmp_path, verbose=False)
+    assert rec["ok"], rec
+    assert rec["per_device"]["argument_bytes"] == \
+        reference_serving_bytes[f"{mesh_name} {arch}/{shape}"]
+    assert set(rec["collectives"]) == COLLECTIVES and dryrun.UNEVEN not in rec["note"]
+
+
+def test_serving_collectives_match_a_rank_mesh(tmp_path):
+    """fm's reduced ``serve_p99`` on a stacked (2, 2) meta mesh: the dry
+    run's collectives are what compat counts on a (2, 2) rank mesh of 4
+    gloo processes, on every rank."""
+    cell = build_cells("fm", reduced=True)["serve_p99"]
+    rec = dryrun.run_cell("fm/serve_p99", cell, StackedMesh((2, 2), device="meta"), "test",
+                          tmp_path, verbose=False)
+    r = subprocess.run([sys.executable, str(ROOT / "tests" / "torch_mesh_ranks.py"),
+                        "fm_serve", "4", str(tmp_path)], capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
+    assert rec["collectives"]["counts"] == {"all-reduce": 2, "all-gather": 1}
+    for rank in range(4):
+        got = json.loads(str(np.load(tmp_path / f"rank{rank}.npz")["collectives"]))
+        assert got == rec["collectives"], rank
 
 
 # -- the wrappers' shape rules on meta ---------------------------------------------------

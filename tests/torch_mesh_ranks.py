@@ -206,10 +206,81 @@ def sharded_train_outputs(mesh) -> dict:
     return out
 
 
+SERVE_ARCHS = ("fm", "dcn-v2", "bst", "bert4rec")
+SERVE_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand")
+SERVE_CELLS = [(arch, shape) for arch in SERVE_ARCHS for shape in SERVE_SHAPES]
+
+
+def _nested(defs, leaves):
+    """A tree of ``defs``' structure (sorted keys) over ``leaves`` in order."""
+    it = iter(leaves)
+
+    def build(d):
+        return {k: build(d[k]) for k in sorted(d)} if isinstance(d, dict) else next(it)
+    return build(defs)
+
+
+def serve_inputs(arch: str, shape: str, *, multi_pod: bool = False, seed: int = 0):
+    """A reduced recsys serve or retrieval cell and its seeded numpy inputs:
+    ``(cell, cfg, args)``, ``args`` the cell's arguments as numpy trees —
+    parameters as ``numpy_params`` draws them, ids over the whole table
+    (fields' rows, items), dense features and candidates |normal × 0.05|."""
+    from repro_torch.configs import build_cells, get_arch
+    from repro_torch.models.recsys import recsys_param_defs
+    cfg = get_arch(arch).reduced_config()
+    cell = build_cells(arch, multi_pod=multi_pod, reduced=True)[shape]
+    defs = recsys_param_defs(cfg)
+    params = _nested(defs, numpy_params(defs, seed))
+    rng = np.random.default_rng(seed + 1)
+    high = {"sparse": cfg.rows_per_field, "seq": cfg.n_items, "target": cfg.n_items}
+    batch = {}
+    for key in sorted(cell.args[1]):
+        t = cell.args[1][key]
+        batch[key] = (rng.integers(0, high[key], tuple(t.shape)).astype(np.int32)
+                      if key in high else
+                      np.abs(rng.standard_normal(tuple(t.shape)) * 0.05).astype(np.float32))
+    args = (params, batch)
+    if cell.kind == "retrieval":
+        args += (np.abs(rng.standard_normal(tuple(cell.args[2].shape)) * 0.05
+                        ).astype(np.float32),)
+    return cell, cfg, args
+
+
+def serve_args_on(cfg, args, device="cpu") -> tuple:
+    """``serve_inputs``' numpy arguments as the port's: the parameters
+    through ``models/weights.py``, the rest as tensors."""
+    from repro_torch.models.weights import recsys_params_from_numpy
+    return (recsys_params_from_numpy(args[0], cfg, device=device),
+            {k: torch.from_numpy(v).to(device) for k, v in args[1].items()},
+            *(torch.from_numpy(a).to(device) for a in args[2:]))
+
+
+def sharded_serve_outputs(mesh, cells=SERVE_CELLS) -> dict:
+    """Each reduced recsys serve and retrieval cell's sharded function on
+    ``mesh`` (``<arch>/<shape>/<i>``: its output leaves), and what compat's
+    collectives moved in fm's ``serve_p99`` (as JSON)."""
+    import json
+
+    from repro_torch.parallel import compat
+    out = {}
+    for arch, shape in cells:
+        cell, cfg, args = serve_inputs(arch, shape)
+        fn = cell.build(mesh)[0]
+        with compat.count_collectives() as log:
+            got = fn(*serve_args_on(cfg, args))
+        for i, t in enumerate(got if isinstance(got, tuple) else (got,)):
+            out[f"{arch}/{shape}/{i}"] = t.numpy()
+        if (arch, shape) == ("fm", "serve_p99"):
+            out["collectives"] = np.array(json.dumps(log.record(), sort_keys=True))
+    return out
+
+
 # case: (mesh shape, outputs)
 CASES = {"search": ((4, 2), search_outputs), "lookup": ((2, 4), lookup_outputs),
          "bert4rec": ((1, 4), bert4rec_outputs), "ep_moe": ((4, 2), ep_moe_outputs),
-         "sharded_train": ((4, 2), sharded_train_outputs)}
+         "sharded_train": ((4, 2), sharded_train_outputs),
+         "sharded_serve": ((2, 2), sharded_serve_outputs),
+         "fm_serve": ((2, 2), lambda mesh: sharded_serve_outputs(mesh, [("fm", "serve_p99")]))}
 
 
 def _rank(rank: int, case: str, world: int, workdir: str) -> None:
