@@ -6,7 +6,7 @@ training path and the cells (the dry run, the cells that fit, sharded
 training's launcher) on one NVIDIA GPU and hold every hand-written kernel
 against its plain PyTorch twin.
 
-    python3 chip_smoke.py                 # 250,000-doc partition (the default)
+    python3 chip_smoke.py                 # 50,000-doc partition (the default)
     python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
@@ -23,9 +23,9 @@ against its plain PyTorch twin.
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
   2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-  3. a synthetic 250,000-passage partition (``--docs``, cut from 1M, then
-     from 500,000, to keep the whole run inside its time limit on slower
-     hosts; MS MARCO-like passage length,
+  3. a synthetic 50,000-passage partition (``--docs``, cut from 1M, then
+     to 500,000, 250,000 and 50,000, to keep the whole run inside its time
+     limit on slower hosts; MS MARCO-like passage length,
      the anlessini config's 2^19 vocab), published and served by
      ``build_search_app`` with the pruned + kernels config on the card;
   4. K3, K2 and K1 against their twins on that index's real gathered
@@ -69,7 +69,7 @@ Phases (each raises on failure; the script then exits non-zero):
      postings — the standard's own precondition: no impact-ordered
      truncation in any partition or in the single node. Then a commit at
      full scale: ``add_documents`` of 1 % of the live passages anew
-     (``synth_corpus(n, seed=2)``, ext ids of their own; 2,500 at the
+     (``synth_corpus(n, seed=2)``, ext ids of their own; 500 at the
      default) and ``delete_documents`` of as many live ids
      (``default_rng(3)``), one
      ``commit()``, whose writers must publish deltas (no merge at 1 %
@@ -96,7 +96,7 @@ Phases (each raises on failure; the script then exits non-zero):
      ``torch.Generator``, each architecture's tables released before the
      next): ``serve_p99`` (512 rows of the repo's synthetic click-log or
      sequence streams, seed 0, step 0) for all four, ``serve_bulk`` (262,144
-     rows) for fm and dcn-v2, and ``retrieval_cand`` (one user against
+     rows) for fm, dcn-v2 and bst (bert4rec's runs as phase 15's cell), and ``retrieval_cand`` (one user against
      1,000,000 random f32 candidates, k = 100) on the K4 route and the plain
      route for all four. The launch counters are set to 0 before each route
      and checked after it: one K6 launch per fm forward and per fm or dcn-v2
@@ -112,8 +112,9 @@ Phases (each raises on failure; the script then exits non-zero):
      at bert4rec's vocabulary top-100 (512 × 2²⁰ + 2 logits) against its
      twin, bitwise, and timed in turns with ``torch.topk``;
   9. the structured tier and the write path against oracles (the
-     reference's B16 and B11): ``synth_fielded_corpus(100_000, vocab=50_000)``,
-     a fleet of 4 partitions × 2 replicas over the first 90,000
+     reference's B16 and B11): ``synth_fielded_corpus(25_000, vocab=12_500)``
+     (``STRUCT_DOCS``, cut from B16's 100,000 for time), a fleet of 4
+     partitions × 2 replicas over the first 22,500
      (``IndexSpec(structured=True, facet_fields=("cat",))``, B16's window,
      pruned + kernels, k 100, lazy). Per generation and kind — 64
      ``synth_structured_queries`` with a ``cat`` facet request, 64
@@ -127,7 +128,7 @@ Phases (each raises on failure; the script then exits non-zero):
      bag-of-words ext ids equal ``OracleSearcher`` on the queries no
      partition truncates; partition 0's evaluator on the card equals the
      same function on the CPU bit for bit. Between the generations the
-     last 10,000 docs are added and 5,000 seeded ids deleted, committed
+     last 2,500 docs are added and 1,250 seeded ids deleted, committed
      inside an open window: queries admitted before the commit answer from
      generation 1, those after from generation 2, each equal to its
      generation's oracle, and no deleted id is served. Prints the warm
@@ -196,10 +197,10 @@ Phases (each raises on failure; the script then exits non-zero):
      full_graph_sm (2,708 nodes, 10,556 edges, 1,433 features) and molecule
      (128 graphs); (b) h2o-danube-1.8b at ``full_config()`` in bf16, remat
      nothing_saveable, 2 × 4,096 tokens (train_4k's sequence; its batch cut
-     from 256), 6 steps of ``make_train_step(lm_loss)`` on one repeated
+     from 256), 4 steps of ``make_train_step(lm_loss)`` on one repeated
      batch: the loss falls, the first step's loss repeats bit for bit;
      (c) ``python -m repro_torch.launch.train --arch stablelm-3b --preset
-     100m --steps 60 --batch 16 --seq 256 --ckpt-every 20 --fail-at 45``
+     100m --steps 20 --batch 16 --seq 256 --ckpt-every 5 --fail-at 17``
      through its ``main``: ``restarts=1``, the last 10 steps' mean loss
      below the first 10's; (d) fm and dcn-v2 at ``full_config()`` on 65,536
      rows (train_batch), 3 steps each, and bert4rec's sampled loss at 4,096
@@ -212,17 +213,20 @@ Phases (each raises on failure; the script then exits non-zero):
      (FLOPs a device, peak, arguments, trace seconds); every cell ok or a
      skip the reference also skips; (b) every full single-pod cell whose
      global arguments plus its trace's peak fit 60 GB, materialized on the
-     card from numpy seeds (``--seed`` and up; parameters through
-     ``models/weights.py``, larger leaves tiling a seeded block) and run: outputs finite and shaped as the
+     card from numpy seeds (``--seed`` and up; a parameter leaf is its
+     seeded block tiled on the card in f32 and cast there, the values
+     ``models/weights.py`` gives; a cell that the dry run's record says
+     does not fit is not traced again) and run: outputs finite and shaped as the
      meta trace at the same arguments, a train cell's loss finite and its
      first parameter leaf moved, each cell's launches of K1–K6 counted
      (K2, K4, K5, K6 must run, K1 and K3 not); the LM serving cells of the
      archs whose weights fit at batch 1 (cut); (c) ``launch.train --arch
-     stablelm-3b --preset 100m --steps 10 --batch 16 --seq 256`` on ``--mesh
+     stablelm-3b --preset 100m --steps 6 --batch 16 --seq 256`` on ``--mesh
      prod`` and ``--mesh host``: the same loss bits (the production mesh is
      stacked on the card, so its step is the host step: this checks that
      batch and state split over 16 x 16); then ``--mesh host`` in 2
-     processes of a gloo group on the card, a (2, 1) rank mesh and so the
+     processes of a gloo group on the card (started with (b), beside it),
+     a (2, 1) rank mesh and so the
      sharded step (gradient and metrics averaged by gloo, the clip over the
      whole reduced gradient, AdamW on each rank's blocks): each step's loss
      within 1e-4 of the host step's and its grad norm within 1e-4 of
@@ -1651,14 +1655,13 @@ def k5_line(serve, k5, launches) -> dict:
 
 RECSYS_ARCHS = ("fm", "dcn-v2", "bst", "bert4rec")
 RECSYS_SHAPES = dict(serve_p99=512, serve_bulk=262_144, cands=1_000_000, k=100)
-# every architecture at serve_bulk: bst gives K5 262,144 × 8 = 2,097,152
-# (batch · kv head) blocks on its flat grid; bert4rec_serve_topk encodes
-# 2,048 sequences at a time (128 chunks, each 2 K5 launches and a top-100
-# over 2²⁰ items on K2), ~15 s a call, so it takes 1 rep and a profiler
-# window of 1 call
-BULK_ARCHS = ("fm", "dcn-v2", "bst", "bert4rec")
+# serve_bulk here for fm, dcn-v2 and bst (bst gives K5 262,144 × 8 =
+# 2,097,152 (batch · kv head) blocks on its flat grid); bert4rec's (128
+# chunks of 2,048 sequences, each 2 K5 launches and a top-100 over 2²⁰
+# items on K2, ~5.5 s a call) runs at the same 262,144 rows as phase 15's
+# cell, unsharded and sharded, so phase 8 does not run it a second time
+BULK_ARCHS = ("fm", "dcn-v2", "bst")
 RECSYS_REPS = dict(serve_p99=30, serve_bulk=3, retrieval=5)
-BULK_REPS = {"bert4rec": 1}
 ORACLE_ROWS = 64
 ORACLE_RTOL = 1e-5             # of the logit's summed magnitudes (FM's pair term cancels)
 RETRIEVAL_TOL = 1e-6           # of Σ_d |u_d·c_d|: two f32 orders of one dot
@@ -1878,7 +1881,7 @@ def recsys_arch(name, kern, ref, torch, device, seed):
     sizes = {"serve_p99": (p99, RECSYS_REPS["serve_p99"])}
     if name in BULK_ARCHS:
         sizes["serve_bulk"] = (recsys_batch(cfg, RECSYS_SHAPES["serve_bulk"], seed=seed),
-                               BULK_REPS.get(name, RECSYS_REPS["serve_bulk"]))
+                               RECSYS_REPS["serve_bulk"])
     print(f"[8] {name}: batches from the synthetic streams in {time.perf_counter() - t0:.1f} s",
           flush=True)
     answers = {}
@@ -2040,7 +2043,7 @@ def k6_line(results, launches, err) -> dict:
 # synth_fielded_corpus at B16's vocabulary rule (n_docs // 2), cut from
 # 100,000 to fit the smoke's time limit: the v2 packs of the fleet and of
 # the two generations' oracles are host numpy, ~0.5 ms a doc each
-STRUCT_DOCS = 50_000
+STRUCT_DOCS = 25_000
 STRUCT_INCOMING = STRUCT_DOCS // 10    # the corpus's last docs arrive by commit
 STRUCT_DELETES = STRUCT_DOCS // 20
 STRUCT_K = 100                 # B16's fleet ceiling; requests take k 10
@@ -2981,9 +2984,9 @@ def moe_entry(r) -> dict:
 GNN_TRAIN = dict(nodes=232_965, degree=25, d_feat=602, seeds=1024, fanout=(15, 10), steps=8,
                  every=4, fail_at=6, repeat=2, aggregator="mean")
 GNN_SMALL = dict(full_graph_sm=2, molecule=2)          # steps of the two other regimes
-LM_TRAIN = dict(arch="h2o-danube-1.8b", batch=2, seq=4096, steps=6, lr=3e-4)
-LAUNCHER_ARGV = ["--arch", "stablelm-3b", "--preset", "100m", "--steps", "60", "--batch", "16",
-                 "--seq", "256", "--ckpt-every", "20", "--fail-at", "45"]
+LM_TRAIN = dict(arch="h2o-danube-1.8b", batch=2, seq=4096, steps=4, lr=3e-4)
+LAUNCHER_ARGV = ["--arch", "stablelm-3b", "--preset", "100m", "--steps", "20", "--batch", "16",
+                 "--seq", "256", "--ckpt-every", "5", "--fail-at", "17"]
 RECSYS_TRAIN = dict(archs=("fm", "dcn-v2"), batch=65_536, steps=3,
                     bert4rec_batch=4096, bert4rec_steps=3)
 
@@ -3351,7 +3354,7 @@ def train_phase(kern, torch, device="cuda") -> tuple[dict, dict]:
 CELLS_FIT_BYTES = 60e9          # global arguments + the trace's peak a card run may take
 CELLS_SEED_BLOCK = 1 << 22      # seeded values a leaf draws; a larger leaf tiles them
 CELLS_LM_BATCH = 1              # LM serving cells run at this batch (cut from 32 / 128)
-CELLS_LAUNCHER = ["--arch", "stablelm-3b", "--preset", "100m", "--steps", "10", "--batch",
+CELLS_LAUNCHER = ["--arch", "stablelm-3b", "--preset", "100m", "--steps", "6", "--batch",
                   "16", "--seq", "256", "--log-every", "100"]
 CELLS_ON_PATH = ("K2", "K4", "K5", "K6")    # the kernels the cells launch; K1 and K3 are not
 CELLS_JOBS = 7                  # dry-run cells traced at a time, each in a worker process
@@ -3387,24 +3390,21 @@ def tiled_on(device, block: "np.ndarray", shape, dtype, torch):
 
 
 def cell_args(cell, args, torch, device, seed, held: dict):
-    """A cell's arguments on the card, from seeds: each parameter leaf a
-    numpy array through ``models/weights.py::tree_from_numpy`` (a train
+    """A cell's arguments on the card, from seeds: each parameter leaf its
+    seeded block tiled on the card in f32, then cast there to the leaf's
+    dtype — the values ``models/weights.py::tree_from_numpy`` gives the
+    tiled array, without tiling billions of values on the host (a train
     cell's state is ``init_train_state`` of those parameters: zero moments,
     as the reference's smoke test makes it), batch and cache leaves by the
-    same rule, tiled on the card, a graph's edges over all its nodes. The
-    serving cells of one arch share one parameter tree, kept in ``held``."""
-    from repro_torch.models.common import ParamDef, tree_map
-    from repro_torch.models.weights import tree_from_numpy
+    same rule, a graph's edges over all its nodes. The serving cells of one
+    arch share one parameter tree, kept in ``held``."""
+    from repro_torch.models.common import tree_map
     from repro_torch.train.steps import init_train_state
     seeds = iter(range(seed, seed + 1_000_000))
 
     def param(t):
-        shape = tuple(t.shape)
-        n = math.prod(shape)
-        block = seeded_block(n, integer=False, seed=next(seeds))
-        arr = (np.resize(block, n) if n > block.size else block).reshape(shape)
-        return tree_from_numpy(arr, ParamDef(shape, (None,) * t.dim(), dtype=t.dtype),
-                               device=device)
+        block = seeded_block(t.numel(), integer=False, seed=next(seeds))
+        return tiled_on(device, block, tuple(t.shape), torch.float32, torch).to(t.dtype)
 
     def batch_leaf(t, high=4):
         block = seeded_block(t.numel(), integer=not t.is_floating_point(), seed=next(seeds),
@@ -3573,9 +3573,14 @@ def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict
                 mesh_meta, mesh_card = meta_mesh, card_mesh
             if lm:
                 args = lm_cut(cell, CELLS_LM_BATCH)
-            want, arg_bytes, peak = meta_trace(fn, args, mesh_meta)
             if not (lm or serving):         # the record of a serving cell is its sharded trace's
+                # the record decides the fit: a cell that does not fit (an LM's
+                # train_4k) is not traced again here
                 arg_bytes, peak = rec["global"]["argument_bytes"], rec["global"]["peak_bytes"]
+                if arg_bytes + peak <= CELLS_FIT_BYTES:
+                    want = meta_trace(fn, args, mesh_meta)[0]
+            else:
+                want, arg_bytes, peak = meta_trace(fn, args, mesh_meta)
             if arg_bytes + peak > CELLS_FIT_BYTES:
                 results[name] = dict(run=False, bytes=arg_bytes + peak)
                 continue
@@ -3991,24 +3996,37 @@ def launcher_rank(rank: int, world: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def launcher_meshes(torch, tmp) -> dict:
+def launcher_ranks(tmp):
+    """Phase 15c's CELLS_RANKS processes, started with phase 15 so that they
+    run beside (b) (their start-up is most of their time; the card and the
+    host are shared). Returns their start time and their context."""
+    import torch.multiprocessing as mp
+    return time.perf_counter(), mp.start_processes(
+        launcher_rank, args=(CELLS_RANKS, str(tmp)), nprocs=CELLS_RANKS, join=False,
+        start_method="spawn")
+
+
+def stop_ranks(ranks) -> None:
+    for proc in ranks.processes:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+
+
+def launcher_meshes(torch, tmp, started) -> dict:
     """Phase 15c: ``launch.train`` with CELLS_LAUNCHER on ``--mesh prod``
     (the (16, 16) production mesh stacked on the card: the host step once
     the batch and state split over it) and ``--mesh host``: the same loss
     bits, step for step; then ``--mesh host`` in CELLS_RANKS processes of
-    a gloo group, each on the card (the rank mesh's sharded step), against
-    the host step: each step's loss within 1e-4 and grad norm within 1e-4
-    of itself (gloo sums the ranks' gradients in its own order)."""
+    a gloo group (``started``, from :func:`launcher_ranks`), each on the
+    card (the rank mesh's sharded step), against the host step: each
+    step's loss within 1e-4 and grad norm within 1e-4 of itself (gloo sums
+    the ranks' gradients in its own order)."""
     import io
 
-    import torch.multiprocessing as mp
     from repro_torch.launch import train
     history, walls = {}, {}
-    # the ranks start first and run beside the two stacked runs (their
-    # start-up is most of their time); the card and the host are shared
-    t_ranks = time.perf_counter()
-    ranks = mp.start_processes(launcher_rank, args=(CELLS_RANKS, str(tmp)), nprocs=CELLS_RANKS,
-                               join=False, start_method="spawn")
+    t_ranks, ranks = started
     try:
         for mesh in ("prod", "host"):
             out = tmp / f"launcher_{mesh}.json"
@@ -4023,10 +4041,7 @@ def launcher_meshes(torch, tmp) -> dict:
         while not ranks.join():
             pass
     finally:
-        for proc in ranks.processes:
-            if proc.is_alive():
-                proc.terminate()
-                proc.join()
+        stop_ranks(ranks)
     walls["ranks"] = time.perf_counter() - t_ranks
     losses = {mesh: [h["loss"] for h in hist] for mesh, hist in history.items()}
     require(losses["prod"] == losses["host"], f"--mesh prod losses {losses['prod']} != --mesh "
@@ -4049,7 +4064,8 @@ def launcher_meshes(torch, tmp) -> dict:
           f"rank mesh) == the host step to {loss_err:.3g} in the loss and {norm_err:.3g} of the "
           f"grad norm (bounds 1e-4), {len(history['host'])} steps, grad norm "
           f"{history['host'][0]['grad_norm']:.4f} at the first (clip 1.0); "
-          f"{walls['ranks']:.1f} s from their start, beside the two stacked runs", flush=True)
+          f"{walls['ranks']:.1f} s from their start, beside (b) and the two stacked runs",
+          flush=True)
     return dict(losses=losses["host"], walls_s=walls, ranks=CELLS_RANKS,
                 ranks_loss_err=loss_err, ranks_norm_rel_err=norm_err)
 
@@ -4065,12 +4081,17 @@ def cells_phase(kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     dry = DryRun(jobs=max(1, min(CELLS_JOBS, (os.cpu_count() or 2) - 1)))
-    results, launches, sharded = cells_on_card(dry, kern, torch, device, seed)
-    t_b = time.perf_counter() - t_phase
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as tmp:
+        started = launcher_ranks(Path(tmp))     # (c)'s ranks, beside (b)
+        try:
+            results, launches, sharded = cells_on_card(dry, kern, torch, device, seed)
+        except BaseException:
+            stop_ranks(started[1])
+            raise
+        t_b = time.perf_counter() - t_phase
         t_c = time.perf_counter()
         reset(kern)
-        launcher = launcher_meshes(torch, Path(tmp))
+        launcher = launcher_meshes(torch, Path(tmp), started)
         launches["phase 15 launcher"] = counted(kern, "phase 15 launcher", {})
         t_c = time.perf_counter() - t_c
     _, summary = dry.result()
@@ -4086,7 +4107,7 @@ def cells_phase(kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--docs", type=int, default=250_000,
+    ap.add_argument("--docs", type=int, default=50_000,
                     help="passages of phases 3-6's corpus (the single node and the fleet)")
     ap.add_argument("--lm-only", action="store_true",
                     help="phases 1, 2 and 7 only (a shake-out of the LM path; prints no "
