@@ -87,7 +87,9 @@ Phases (each raises on failure; the script then exits non-zero):
      ``lm_decode`` steps against the ring, counters set to 0 before the
      prefill and before the steps: 24 K5 launches per prefill and per step,
      no other kernel. Then K5 against its twin, bitwise, on layer 0's real
-     q/k/v (prefill; decode with kv_len = slots and < slots; Dv != D), timed
+     q/k/v (prefill; decode with kv_len = slots and < slots; Dv != D), with
+     ``return_lse`` the same output bits and each row's lse the twin's
+     (bitwise f32, ``LSE_TOL`` bf16), timed with and without the lse
      beside the twin, ``scaled_dot_product_attention`` and the bound; last,
      decode == forward at full width in f32 (2 prompts of 4,608 tokens, 8
      steps; the reference test's rtol/atol 2e-2 and 5e-2);
@@ -242,7 +244,21 @@ Phases (each raises on failure; the script then exits non-zero):
      order, within that order's bound); each arch's ``serve_p99`` and fm's
      ``retrieval_cand`` also on a (1, 2) rank mesh of 2 gloo processes on
      the card, started with (b) and running beside it, bit for bit as the
-     stacked (1, 2) mesh on every rank.
+     stacked (1, 2) mesh on every rank; (e) right after each of the 7
+     dense-LM serving cells in (b) (starcoder2-3b, stablelm-3b,
+     h2o-danube-1.8b ``prefill_32k`` and ``decode_32k``, h2o's
+     ``long_500k``; batch 1), on the same inputs, its sharded function
+     (tensor-parallel prefill, sequence-sharded decode merged by K5's
+     log-sum-exp) on a stacked (1, 16) mesh, ``long_500k`` on (2, 8): each
+     decode at (b)'s position and at a second one (mid-ring: full, partial
+     and empty shards; ``long_500k`` past its ring's wrap) against an
+     unsharded step there; wall, peak, K5's launches by variant as the
+     body implies, logits and the cache within
+     ``models/transformer.py::sharded_bound`` of the unsharded run, the
+     next token's argmax equal but where the unsharded top two lie within
+     it, K5 with its lse against the twin at the decode's shapes; h2o's
+     ``decode_32k`` also over the (1, 2) rank mesh, within the bound of
+     the stacked (1, 2) run.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -280,6 +296,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1421,13 +1438,32 @@ def k5_check(name, k5, ref, torch, a, b, c, kw, tag="7") -> dict:
     that sees no key as 0). Then within 2e-2 of the dense oracle on the last
     query rows whose scores fit ``ORACLE_SCORES``, and, for a causal
     prefill too long for that, on as many first rows (which see only the
-    first keys)."""
+    first keys). With ``return_lse`` the output's bits are the call's
+    without it, and each row's lse is the twin's: bitwise for f32, within
+    ``LSE_TOL``·max(1, |twin|) for bf16, −inf where the twin's is."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import variant
+    from repro_torch.kernels.flash_attention import LSE_TOL, variant
     got = k5(a, b, c, **kw)
-    want, plain_ms = cuda_call_ms(lambda: ref.flash_attention_ref(a, b, c, **kw))
+    got_lse_out, got_lse = k5(a, b, c, return_lse=True, **kw)
+    (want, want_lse), plain_ms = cuda_call_ms(
+        lambda: ref.flash_attention_ref(a, b, c, return_lse=True, **kw))
     err = max_abs_err(got.float(), want.float())
     r = dict(err=err, plain_ms=plain_ms)
+    require(same_bits(got_lse_out, got), f"K5 ({name}): return_lse changed the output's bits")
+    dead = torch.isinf(want_lse)
+    require(torch.equal(torch.isinf(got_lse), dead), f"K5 ({name}): lse -inf rows differ")
+    r["lse_err"] = max_abs_err(got_lse[~dead], want_lse[~dead])
+    if a.dtype == torch.float32:
+        require(same_bits(got_lse, want_lse), f"K5 lse != twin ({name})")
+        lse_held = "bitwise"
+    else:
+        lse_tol = LSE_TOL * torch.clamp(want_lse[~dead].abs(), min=1.0)
+        r["lse_over_tol"] = float(((got_lse[~dead] - want_lse[~dead]).abs() / lse_tol).max()) \
+            if lse_tol.numel() else 0.0
+        require(r["lse_over_tol"] <= 1.0, f"K5 ({name}): lse off the twin by "
+                                          f"{r['lse_over_tol']:.3g} of LSE_TOL")
+        lse_held = f"{r['lse_over_tol']:.3g} of LSE_TOL"
+    del got_lse_out, got_lse, want_lse
     if a.dtype == torch.float32:
         require(same_bits(got, want), f"K5 != twin ({name})")
         held = "bitwise == twin"
@@ -1461,7 +1497,9 @@ def k5_check(name, k5, ref, torch, a, b, c, kw, tag="7") -> dict:
         del oracle, part
     print(f"[{tag}] K5 {name}: q {tuple(a.shape)} k {tuple(b.shape)} v {tuple(c.shape)} "
           f"{a.dtype} {kw}: {held} (max abs err {err}); max abs err against the dense oracle "
-          f"{r['oracle_err']} on the {' and '.join(spans)} {rows} query rows", flush=True)
+          f"{r['oracle_err']} on the {' and '.join(spans)} {rows} query rows; with return_lse "
+          f"the same output bits, lse max abs err {r['lse_err']:.3g} against the twin's "
+          f"({lse_held})", flush=True)
     return r
 
 
@@ -1520,7 +1558,8 @@ def k5_timing(name, r, case, k5, ref, torch, reps, tag="7") -> None:
     """K5 on ``case`` (q, k, v, kwargs) timed beside the twin,
     ``scaled_dot_product_attention`` (``enable_gqa`` and a boolean mask)
     and the bound: CUDA events around back-to-back calls, and around a CUDA
-    graph of the same calls, kernel and SDPA in turns (kernel, SDPA, SDPA,
+    graph of the same calls, kernel, kernel with ``return_lse`` (the lse
+    epilogue, ``lse_ms``) and SDPA in turns (kernel, lse, SDPA, SDPA, lse,
     kernel). The times go into ``r``."""
     import torch.nn.functional as F
     a, b, c, kw = case
@@ -1528,8 +1567,11 @@ def k5_timing(name, r, case, k5, ref, torch, reps, tag="7") -> None:
     sdpa = lambda: F.scaled_dot_product_attention(a, b, c, attn_mask=mask,  # noqa: E731
                                                   enable_gqa=True, scale=kw.get("sm_scale"))
     kernel = lambda: k5(a, b, c, **kw)                                     # noqa: E731
-    timed = {"ms": [], "library_ms": [], "graph_ms": [], "library_graph_ms": []}
-    for key, fn in (("", kernel), ("library_", sdpa), ("library_", sdpa), ("", kernel)):
+    lse = lambda: k5(a, b, c, return_lse=True, **kw)                      # noqa: E731
+    timed = {"ms": [], "library_ms": [], "graph_ms": [], "library_graph_ms": [],
+             "lse_ms": [], "lse_graph_ms": []}
+    for key, fn in (("", kernel), ("lse_", lse), ("library_", sdpa), ("library_", sdpa),
+                    ("lse_", lse), ("", kernel)):
         timed[f"{key}ms"].append(cuda_ms(fn, reps=reps))
         timed[f"{key}graph_ms"].append(graph_ms(fn, reps=reps))
     r.update({key: float(np.mean(t)) for key, t in timed.items()})
@@ -1540,7 +1582,9 @@ def k5_timing(name, r, case, k5, ref, torch, reps, tag="7") -> None:
     r["shape"] = (f"q {tuple(a.shape)}, k {tuple(b.shape)}, v {tuple(c.shape)}, {a.dtype}, "
                   f"{', '.join(f'{key}={val}' for key, val in kw.items())}")
     print(f"[{tag}] K5 {name} timing: kernel {r['ms']:.4f} ms ({timed['ms']}), in a CUDA graph "
-          f"{r['graph_ms']:.4f} ms ({timed['graph_ms']}); scaled_dot_product_attention "
+          f"{r['graph_ms']:.4f} ms ({timed['graph_ms']}); with return_lse {r['lse_ms']:.4f} ms "
+          f"({timed['lse_ms']}), in a CUDA graph {r['lse_graph_ms']:.4f} ms "
+          f"({timed['lse_graph_ms']}); scaled_dot_product_attention "
           f"{r['library_ms']:.4f} ms ({timed['library_ms']}), in a CUDA graph "
           f"{r['library_graph_ms']:.4f} ms ({timed['library_graph_ms']}); twin "
           f"{r['plain_ms']:.1f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}): the "
@@ -1630,7 +1674,8 @@ def k5_line(serve, k5, launches) -> dict:
     (prefill + decode steps), times at the prefill shape (the tensor-core
     kernel), the decode shape's (split-KV) beside them."""
     pre, dec = k5["prefill"], k5["decode"]
-    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "shape")
+    keys = ("ms", "graph_ms", "lse_ms", "lse_graph_ms", "plain_ms", "library_ms",
+            "library_graph_ms", "shape")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
@@ -1641,7 +1686,8 @@ def k5_line(serve, k5, launches) -> dict:
         "launches_by_variant": serve["variants"],
         "max_abs_err": max(r["err"] for r in k5.values()),
         "tolerance": {name: r.get("tol", 0.0) for name, r in k5.items()},
-        "ms": pre["ms"], "graph_ms": pre["graph_ms"], "plain_ms": pre["plain_ms"],
+        "ms": pre["ms"], "graph_ms": pre["graph_ms"], "lse_ms": pre["lse_ms"],
+        "lse_graph_ms": pre["lse_graph_ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound"][0], "bound_by": pre["bound"][1],
         "library_ms": pre["library_ms"], "library_graph_ms": pre["library_graph_ms"],
         "shape": pre["shape"],
@@ -3365,6 +3411,11 @@ SHARDED_MESHES = {"serve_p99": (16, 16), "serve_bulk": (4, 2), "retrieval_cand":
 SHARDED_RANK_MESH = (1, 2)      # 15(d)'s rank mesh: 2 gloo processes on the one card
 SHARDED_RANK_CELLS = ("fm/serve_p99", "dcn-v2/serve_p99", "bst/serve_p99", "bert4rec/serve_p99",
                       "fm/retrieval_cand")
+# 15(e): the dense LM serving cells' sharded functions on these stacked meshes: the
+# production width of model (16) for prefill and decode_32k, so no weight is
+# copied; long_500k's sequence over both axes of (2, 8)
+LM_SHARDED_MESHES = {"prefill_32k": (1, 16), "decode_32k": (1, 16), "long_500k": (2, 8)}
+LM_RANK_CELLS = ("h2o-danube-1.8b/decode_32k",)   # also on the (1, 2) rank mesh
 UNIT = 2.0 ** -24               # f32's unit roundoff
 
 
@@ -3542,7 +3593,7 @@ def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict
     card_mesh = StackedMesh((1, 1), device=device)
     prod_meta = make_production_mesh(device="meta")
     prod_card = make_production_mesh(device=device)
-    results, launches, sharded, stacked_small = {}, {}, {}, {}
+    results, launches, sharded, lm_sharded, stacked_small = {}, {}, {}, {}, {}
     held: dict = {}                 # one arch's serving parameters, while its cells run
     cells = {}
     ranks = ServingRanks(seed, device)      # 15(d)'s rank mesh, beside (b)
@@ -3564,7 +3615,8 @@ def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict
                 continue
             lm = name.split("/")[0] in LM_ARCHS and cell.kind in ("prefill", "decode")
             late = cell.fn is None          # anlessini: the mesh search is built for its mesh
-            serving = hasattr(cell, "build") and not late   # a recsys cell with a sharded build
+            # a recsys cell with a sharded build (15d); a dense LM's is 15(e)
+            serving = hasattr(cell, "build") and not late and not lm
             if late:
                 fn, args, _ = cell.build(prod_meta)
                 mesh_meta, mesh_card = prod_meta, prod_card
@@ -3634,6 +3686,12 @@ def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict
                 sharded[name], host = sharded_cell(name, cell, cargs, out, kern, torch, device)
                 launches[f"phase 15d {name}"] = sharded[name]["launches"]
                 stacked_small.update(host)
+            elif lm and hasattr(cell, "build"):
+                lm_sharded[name], host = lm_sharded_cell(name, cell, cargs, out, kern, torch,
+                                                         device)
+                for run in lm_sharded[name]["runs"]:
+                    launches[f"phase 15e {name} {run['at']}"] = run["launches"]
+                stacked_small.update(host)
             del out, cargs, before
             gc.collect()
             torch.cuda.empty_cache()
@@ -3648,7 +3706,16 @@ def cells_on_card(dry: DryRun, kern, torch, device="cuda", seed=0) -> tuple[dict
     seconds = sum(r["seconds"] for r in sharded.values())
     print(f"[15d] the 12 sharded cells took {seconds:.1f} s in the main process (walls, checks "
           f"and the stacked {SHARDED_RANK_MESH} runs)", flush=True)
-    sharded_out = dict(cells=sharded, ranks=ranks_out, seconds=seconds)
+    bad = {n: [r["why"] for r in c["runs"] if not r["ok"]] for n, c in lm_sharded.items()}
+    bad = {n: w for n, w in bad.items() if w}
+    require(len(lm_sharded) == 7 and not bad, f"phase 15e: {len(lm_sharded)} dense LM cells "
+                                               f"ran sharded; failed: {bad}")
+    lm_seconds = sum(r["seconds"] for r in lm_sharded.values())
+    print(f"[15e] the 7 sharded dense LM cells took {lm_seconds:.1f} s in the main process "
+          f"(the sharded runs, the unsharded steps at the extra positions, the checks and the "
+          f"stacked {SHARDED_RANK_MESH} run)", flush=True)
+    sharded_out = dict(cells=sharded, ranks=ranks_out, seconds=seconds,
+                       lm=dict(cells=lm_sharded, seconds=lm_seconds))
     ran = [n for n, r in results.items() if r["run"]]
     print(f"[15b] {len(ran)} cells ran on the card: {ran}; not run (over "
           f"{CELLS_FIT_BYTES:.0f} B): {[n for n, r in results.items() if not r['run']]}",
@@ -3865,6 +3932,176 @@ def sharded_cell(name, cell, cargs, want, kern, torch, device) -> tuple[dict, di
     return r, host
 
 
+def lm_seq_shards(cell, mesh) -> tuple[int, int]:
+    """(sequence shards, slots a shard) of a decode cell's cache on ``mesh``."""
+    from repro_torch.models.transformer import _decode_seq_axes
+    n = math.prod(mesh.shape[a] for a in _decode_seq_axes(cell.in_specs[1]))
+    return n, cell.args[1]["k"].shape[3] // n
+
+
+def lm_extra_position(cell, mesh) -> int:
+    """15(e)'s second decode position: for decode_32k the middle of the
+    middle shard's slots (the shards before it full, it partial, the rest
+    empty); for long_500k past the ring's wrap, in the middle of a shard
+    (every shard full)."""
+    n, sl = lm_seq_shards(cell, mesh)
+    if cell.shape == "long_500k":
+        return n * sl + (n // 2) * sl + sl // 2
+    return (n // 2 - 1) * sl + sl // 2
+
+
+def lm_sharded_expect(cell, mesh, pos) -> tuple[dict, dict]:
+    """K5's launches in one run of a dense LM cell's sharded body, by kernel
+    and by variant: a prefill one "tc" call a layer over every partition's
+    heads; a decode one "split" call a layer for each partition whose
+    slice of the ring holds a visible key (min(pos + 1, slots) keys from
+    the first slot), none for one that holds none."""
+    cfg = cell.fn.keywords["cfg"]
+    L = cfg.n_layers
+    if cell.kind == "prefill":
+        return {"K5": L}, {"tc": L}
+    n, sl = lm_seq_shards(cell, mesh)
+    kv_len = min(pos + 1, n * sl)
+    calls = L * (mesh.size // n) * sum(kv_len > s * sl for s in range(n))
+    return {"K5": calls}, {"split": calls}
+
+
+def layer_max_err(a, b) -> float:
+    """max|a − b| over (layers, ...) caches, a layer at a time (no f64 copy
+    of a whole cache on the card)."""
+    return max(max_abs_err(x, y) for x, y in zip(a, b))
+
+
+def lm_sharded_compare(cell, mesh, got, want, rows_want=None, pos=None) -> dict:
+    """A dense LM cell's sharded outputs against the unsharded ones: the
+    logits within :func:`~repro_torch.models.transformer.sharded_bound`, and
+    the next token's argmax equal but where the unsharded top two lie
+    within it; the cache within its own bound: a prefill's whole cache, a
+    decode's new k and v rows in slot ``pos % slots`` (``rows_want``, the
+    unsharded step's)."""
+    import torch
+    from repro_torch.models.transformer import sharded_bound
+    cfg = cell.fn.keywords["cfg"]
+    bound = functools.partial(sharded_bound, cfg, cell.kind, mesh, cell.in_specs)
+    (gl, got_cache), (wl, want_cache) = got, want
+    r = dict(logits_err=max_abs_err(gl, wl), logits_bound=bound(wl))
+    top2 = wl.float().topk(2, -1).values
+    close = (top2[:, 0] - top2[:, 1]) <= r["logits_bound"]
+    same = gl.float().argmax(-1) == wl.float().argmax(-1)
+    r.update(argmax=gl.float().argmax(-1).tolist(), argmax_equal=bool(same.all()),
+             argmax_tied=int((~same & close).sum()))
+    cache_err, cache_bound = 0.0, 0.0
+    for key in ("k", "v"):
+        if cell.kind == "prefill":
+            g, w = got_cache[key], want_cache[key]
+        else:
+            g, w = got_cache[key][:, :, :, pos % got_cache[key].shape[3]], rows_want[key]
+        cache_err = max(cache_err, layer_max_err(g, w))
+        cache_bound = max(cache_bound, bound(w))
+    r.update(cache_err=cache_err, cache_bound=cache_bound)
+    ok = r["logits_err"] <= r["logits_bound"] and bool((same | close).all()) and \
+        cache_err <= cache_bound
+    r.update(ok=ok)
+    if not ok:
+        r["why"] = (f"logits off by {r['logits_err']:.4g} (bound {r['logits_bound']:.4g}), "
+                    f"argmax {r['argmax']} vs {wl.float().argmax(-1).tolist()}, cache off by "
+                    f"{cache_err:.4g} (bound {cache_bound:.4g})")
+    del top2
+    torch.cuda.empty_cache()
+    return r
+
+
+def lm_k5_check(name, cell, mesh, cache, pos, kern, torch, device) -> dict:
+    """K5 with ``return_lse`` at the sharded decode's shapes (phase 7c's
+    :func:`k5_check`): q (b, H, 1, Dh) of seeded values against layer 0's
+    slice of the ring on the last sequence shard that holds a visible key
+    at ``pos``, with that shard's local kv_len."""
+    from repro_torch.kernels import ref
+    cfg = cell.fn.keywords["cfg"]
+    n, sl = lm_seq_shards(cell, mesh)
+    kv_len = min(pos + 1, n * sl)
+    s = (kv_len - 1) // sl
+    k, v = (cache[key][0, :, :, s * sl:(s + 1) * sl].contiguous() for key in ("k", "v"))
+    g = torch.Generator(device=device).manual_seed(28)
+    q = torch.randn(k.shape[0], cfg.n_heads, 1, cfg.dh, generator=g, device=device).to(k.dtype)
+    r = k5_check(f"{name} at pos {pos}, sequence shard {s}'s slice", kern["K5"], ref, torch,
+                 q, k, v, dict(kv_len=kv_len - s * sl), tag="15e")
+    r.pop("row_tol", None)
+    return r
+
+
+def lm_sharded_cell(name, cell, cargs, want, kern, torch, device) -> tuple[dict, dict]:
+    """Phase 15(e) for one dense LM serving cell, right after its unsharded
+    run in (b) on the same inputs: ``cell.build`` over its stacked mesh
+    (LM_SHARDED_MESHES) on the card, its wall, peak and K5 launches by
+    variant (:func:`lm_sharded_expect`), its outputs against the unsharded
+    ones (:func:`lm_sharded_compare`). A decode runs at (b)'s position (a
+    decode writes its slot before it attends, so (b)'s write changes no
+    input) and at :func:`lm_extra_position`, where an unsharded step on the
+    same cache is the reference; its K5 is then held to its twin at the
+    body's shapes (:func:`lm_k5_check`). A LM_RANK_CELLS cell also runs on
+    a stacked SHARDED_RANK_MESH, which the rank mesh is held to. Returns
+    (the record, that run's logits on the host beside its bound)."""
+    from repro_torch.models.transformer import sharded_bound
+    from repro_torch.parallel.compat import StackedMesh
+    t_cell = time.perf_counter()
+    mesh = StackedMesh(LM_SHARDED_MESHES[cell.shape], ("data", "model"), device=device)
+    fn = cell.build(mesh)[0]
+    if cell.kind == "prefill":
+        runs = [(None, want)]
+    else:
+        runs = [(int(cargs[3]), want), (lm_extra_position(cell, mesh), None)]
+    records = []
+    for pos, ref_out in runs:
+        args, rows = cargs, None
+        if cell.kind == "decode":
+            params, cache, token = cargs[:3]
+            if ref_out is None:             # the unsharded step at this position
+                ref_out = cell.fn(params, cache, token, torch.tensor(pos, device=device))
+            slot = pos % cache["k"].shape[3]
+            rows = {key: cache[key][:, :, :, slot].clone() for key in ("k", "v")}
+            args = (params, cache, token, torch.tensor(pos, device=device))
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset(kern)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        at = "prefill" if pos is None else f"pos {pos}"
+        expect, by = lm_sharded_expect(cell, mesh, pos)
+        launches = counted(kern, f"phase 15e {name} {at}", expect)
+        variants = k5_variants(kern, f"phase 15e {name} {at}", by)
+        r = lm_sharded_compare(cell, mesh, got, ref_out, rows, pos)
+        r.update(at=at, wall_ms=wall * 1e3, peak=peak, launches=launches, k5_by=variants)
+        records.append(r)
+        print(f"[15e] {name} {at} on a stacked {LM_SHARDED_MESHES[cell.shape]} mesh: "
+              f"{r['wall_ms']:.1f} ms, peak {peak} B, K5 {variants} (the body's count); "
+              f"logits max |Δ| {r['logits_err']:.4g} against the unsharded run (bound "
+              f"{r['logits_bound']:.4g}), argmax {r['argmax']} "
+              f"{'equal' if r['argmax_equal'] else 'within the bound of a tie'}; "
+              f"{'cache' if pos is None else 'new k/v rows'} max |Δ| {r['cache_err']:.4g} "
+              f"(bound {r['cache_bound']:.4g}){'' if r['ok'] else ' - FAILED: ' + r['why']}",
+              flush=True)
+        del got, ref_out, rows
+    k5 = None
+    if cell.kind == "decode":
+        k5 = lm_k5_check(name, cell, mesh, cargs[1], runs[-1][0], kern, torch, device)
+    host = {}
+    if name in LM_RANK_CELLS:
+        small = StackedMesh(SHARDED_RANK_MESH, ("data", "model"), device=device)
+        logits = cell.build(small)[0](*cargs)[0]
+        tol = sharded_bound(cell.fn.keywords["cfg"], cell.kind, small, cell.in_specs, logits)
+        host[f"{name}/0"] = (logits.float().cpu().numpy(),) * 2 + (tol,)
+        del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(mesh=list(LM_SHARDED_MESHES[cell.shape]), runs=records, k5=k5,
+                seconds=time.perf_counter() - t_cell), host
+
+
 class ServingRanks:
     """Phase 15(d)'s rank mesh: CELLS_RANKS processes of :func:`serving_rank`,
     started with (b) and running beside it; :meth:`check` waits for them and
@@ -3892,7 +4129,9 @@ class ServingRanks:
     def check(self, host: dict) -> dict:
         """Wait for the ranks; each output bitwise to ``host``'s reference
         run (the first of each pair), beside the stacked run's (the second:
-        its largest difference printed)."""
+        its largest difference printed). An entry with a third member, a
+        bound (the LM_RANK_CELLS' logits), is held within it of the stacked
+        run, and whether it came out bitwise is printed."""
         try:
             while not self.procs.join():
                 pass
@@ -3906,26 +4145,36 @@ class ServingRanks:
 
         def bits(a):
             return a.view(np.uint32) if a.dtype == np.float32 else a
-        differ, to_stacked = {}, {}
+        differ, to_stacked, lm_bits = {}, {}, {}
         for r, out in enumerate(outs):
             require(sorted(out) == sorted(host), f"rank {r}: outputs {sorted(out)}")
-            for key, (want, stacked) in host.items():
+            for key, (want, stacked, *tol) in host.items():
                 got = out[key]
-                if got.shape != want.shape or not np.array_equal(bits(got), bits(want)):
-                    differ[f"rank {r} {key}"] = float(np.abs(
-                        got.astype(np.float64) - want.astype(np.float64)).max())
+                same = got.shape == want.shape and np.array_equal(bits(got), bits(want))
+                err = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
+                if tol:
+                    lm_bits[key] = lm_bits.get(key, True) and same
+                if not same and (not tol or err > tol[0]):
+                    differ[f"rank {r} {key}"] = err
                 to_stacked[key] = max(to_stacked.get(key, 0.0), float(np.abs(
                     got.astype(np.float64) - stacked.astype(np.float64)).max()))
-        require(not differ, f"phase 15d: the rank mesh != the run with its GEMM shapes: {differ}")
+        require(not differ, f"phase 15d/e: the rank mesh != the run with its GEMM shapes "
+                            f"(15d) or off the stacked run by more than the bound (15e): "
+                            f"{differ}")
         print(f"[15d] {SHARDED_RANK_CELLS} over a {SHARDED_RANK_MESH} rank mesh of "
               f"{CELLS_RANKS} gloo processes on the card (each holding half of the tables): "
               f"bit for bit, on every rank, the stacked {SHARDED_RANK_MESH} run where the body "
               f"has no GEMM (fm), else the unsharded run (the same GEMM rows); max |Δ| to the "
               f"stacked run {to_stacked}; each rank {max(rank_s):.1f} s at most in its process, "
               f"beside (b), joined {wall:.1f} s from their start", flush=True)
+        print(f"[15e] {LM_RANK_CELLS} over the same rank mesh (each rank holding half of the "
+              f"heads, the vocabulary and the ring): logits within the sharded bound of the "
+              f"stacked {SHARDED_RANK_MESH} run on every rank, bit for bit: {lm_bits}",
+              flush=True)
         return dict(cells=list(SHARDED_RANK_CELLS), mesh=list(SHARDED_RANK_MESH),
                     ranks=CELLS_RANKS, rank_s=rank_s, joined_s=wall, bitwise=True,
-                    max_abs_to_stacked=to_stacked)
+                    max_abs_to_stacked=to_stacked, lm_cells=list(LM_RANK_CELLS),
+                    lm_bitwise=lm_bits)
 
 
 def serving_rank(rank: int, world: int, tmp: str, seed: int, device: str = "cuda",
@@ -3934,8 +4183,9 @@ def serving_rank(rank: int, world: int, tmp: str, seed: int, device: str = "cuda
     FileStore in ``tmp``, a SHARDED_RANK_MESH rank mesh on the card, and
     SHARDED_RANK_CELLS' sharded functions on (b)'s seeded inputs (each
     arch's parameters made at its first cell, as (b) makes them), each
-    rank holding its half of the tables; the outputs to
-    ``tmp/serving_rank<r>.npz``. ``reduced`` (the configs' reduced cells)
+    rank holding its half of the tables, then LM_RANK_CELLS' (the
+    parameters made at the arch's prefill cell, as (b) makes them; the
+    decode at (b)'s position); the outputs to ``tmp/serving_rank<r>.npz``. ``reduced`` (the configs' reduced cells)
     rehearses it on the CPU."""
     import datetime
 
@@ -3965,6 +4215,15 @@ def serving_rank(rank: int, world: int, tmp: str, seed: int, device: str = "cuda
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
+        for name in LM_RANK_CELLS:
+            arch, shape = name.split("/")
+            cells, held = build_cells(arch, reduced=reduced), {}
+            first = cells["prefill_32k"]
+            cell_args(first, lm_cut(first, CELLS_LM_BATCH), torch, device, seed, held)
+            cell = cells[shape]
+            cargs = cell_args(cell, lm_cut(cell, CELLS_LM_BATCH), torch, device, seed, held)
+            out[f"{name}/0"] = cell.build(mesh)[0](*cargs)[0].float().cpu().numpy()
+            del cargs, held
         np.savez(Path(tmp) / f"serving_rank{rank}.npz", **out,
                  seconds=np.float64(time.perf_counter() - t0))
     finally:

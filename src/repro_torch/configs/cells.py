@@ -134,6 +134,7 @@ def lm_cells(arch: str, cfg, rules: ShardRules, *, reduced: bool = False,
     pspecs = param_specs(defs, rules)
     opt = opt or OptConfig()
     cells: dict[str, CellSpec] = {}
+    dense = cfg.moe is None and cfg.mla is None
 
     for sname, sh in shapes.items():
         B, S = sh["batch"], sh["seq"]
@@ -158,6 +159,8 @@ def lm_cells(arch: str, cfg, rules: ShardRules, *, reduced: bool = False,
             args = (abstract_params(defs), SDS((B, S), torch.int32))
             specs = (pspecs, rules.batch_spec(None))
             cells[sname] = CellSpec(arch, sname, kind, fn, args, specs)
+            if dense:
+                cells[sname].build = _lm_sharded_build(cfg, kind, args, specs)
         elif kind == "decode":
             shard_seq = bool(sh.get("long"))
             cache = _lm_cache_abstract(cfg, B, S)
@@ -168,7 +171,21 @@ def lm_cells(arch: str, cfg, rules: ShardRules, *, reduced: bool = False,
                      _lm_cache_specs(cfg, rules, batch=B, shard_seq=shard_seq),
                      P() if shard_seq else rules.batch_spec(None), P())
             cells[sname] = CellSpec(arch, sname, kind, fn, args, specs, donate=(1,))
+            if dense:
+                cells[sname].build = _lm_sharded_build(cfg, kind, args, specs)
     return cells
+
+
+def _lm_sharded_build(cfg, kind: str, args: tuple, specs: tuple) -> Callable:
+    """A dense LM's prefill or decode cell's late binding: ``build(mesh) ->
+    (fn, args, specs)``, ``fn`` the cell's sharded function over ``mesh``
+    (:func:`repro_torch.models.transformer.sharded_cell_fn`) under the cell's
+    own specs. ``cell.fn`` stays the plain adapter, the reference's
+    function."""
+    def build(mesh):
+        from repro_torch.models.transformer import sharded_cell_fn
+        return sharded_cell_fn(cfg, kind, mesh, specs), args, specs
+    return build
 
 
 def _lm_loss_adapter(params, batch, *, cfg):

@@ -64,11 +64,11 @@ SIGNATURES = {
         "dot_topk_tiles_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P]),
     },
     "flash_attention": {
-        "flash_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
+        "flash_attention_launch": (_I, [_P] * 5 + [_I] * 9 + [_F, _P]),
     },
     "flash_attention_bf16": {
-        "flash_attention_tc_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
-        "flash_attention_split_launch": (_I, [_P] * 6 + [_I] * 12 + [_F, _P]),
+        "flash_attention_tc_launch": (_I, [_P] * 5 + [_I] * 9 + [_F, _P]),
+        "flash_attention_split_launch": (_I, [_P] * 7 + [_I] * 12 + [_F, _P]),
     },
     "embedding_bag": {
         "embedding_bag_launch": (_I, [_P] * 4 + [_LL, _I, _I, _I, _P]),

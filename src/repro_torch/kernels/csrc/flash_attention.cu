@@ -14,6 +14,8 @@
 // denominator l and accumulator acc per row, exactly the reference's update
 //     m' = max(m, max_j s_j); p_j = exp(s_j - m'); a = exp(m - m') (0 if m = -inf)
 //     l' = a * l + sum_j p_j;  acc' = acc * a + sum_j p_j v_j.
+// With an lse buffer, each row's log-sum-exp m + log(l) (natural log; -inf
+// for a row that sees no key: m = -inf, log 0 = -inf) is written beside it.
 //
 // Order. Every sum runs in one fixed order with one rounding per step
 // (__fmul_rn / __fadd_rn, no contraction): a score sums q_d * k_d over d
@@ -47,9 +49,9 @@ constexpr int BK = 64;
 template <int BQ, int RM, int DVMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int n_tiles, int rows,
-                 int q_seq, int kv_seq, int D, int Dv, int causal, int window, int kv_len,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int n_tiles, int rows, int q_seq, int kv_seq, int D, int Dv, int causal,
+                 int window, int kv_len, float scale) {
   constexpr int TR = BQ / RM;         // thread rows of the score patch grid
   constexpr int TC = THREADS / TR;    // thread columns
   constexpr int CN = BK / TC;         // score columns a thread holds
@@ -190,6 +192,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
+  if (lse != nullptr && tid < n_rows)      // m and l of row tid are its own writes
+    lse[bh * rows + r0 + tid] = __fadd_rn(m_s[tid], logf(l_s[tid]));
   if (pr < n_rows) {
     const float l = l_s[pr];
     float* orow = o + (bh * rows + r0 + pr) * (long long)Dv;
@@ -202,8 +206,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int BQ, int RM, int DVMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int rows, int q_seq,
-           int kv_seq, int D, int Dv, int causal, int window, int kv_len, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int rows,
+           int q_seq, int kv_seq, int D, int Dv, int causal, int window, int kv_len, float scale,
            cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<BQ, RM, DVMAX>;
   const size_t smem =
@@ -213,39 +217,40 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int row
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (rows + BQ - 1) / BQ;
   kernel<<<(unsigned)((long long)bh * n_tiles), THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, n_tiles, rows, q_seq,
-      kv_seq, D, Dv, causal, window, kv_len, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, n_tiles, rows,
+      q_seq, kv_seq, D, Dv, causal, window, kv_len, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DVMAX>
-int launch_rows(const void* q, const void* k, const void* v, void* o, int bh, int rows,
+int launch_rows(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int rows,
                 int q_seq, int kv_seq, int D, int Dv, int causal, int window, int kv_len,
                 float scale, cudaStream_t stream) {
   if (rows <= 4)
-    return launch<4, 1, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
+    return launch<4, 1, DVMAX>(q, k, v, o, lse, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
                                kv_len, scale, stream);
   if (rows <= 16)
-    return launch<16, 1, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
+    return launch<16, 1, DVMAX>(q, k, v, o, lse, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
                                 kv_len, scale, stream);
-  return launch<64, 4, DVMAX>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
+  return launch<64, 4, DVMAX>(q, k, v, o, lse, bh, rows, q_seq, kv_seq, D, Dv, causal, window,
                               kv_len, scale, stream);
 }
 
 }  // namespace
 
 // q (bh, rows, D), k (bh, kv_seq, D), v (bh, kv_seq, Dv), o (bh, rows, Dv), all
-// contiguous f32; rows = G * q_seq. window <= 0: no window. kv_len: valid keys
-// (kv_seq when the caller gave none). D, Dv <= 256; bh * row tiles < 2^31.
+// contiguous f32; rows = G * q_seq. lse (bh, rows) f32, or null: no lse. window
+// <= 0: no window. kv_len: valid keys (kv_seq when the caller gave none). D, Dv <=
+// 256; bh * row tiles < 2^31.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                        int bh, int rows, int q_seq, int kv_seq, int D, int Dv,
-                                        int causal, int window, int kv_len, float scale,
-                                        void* stream) {
+                                        void* lse, int bh, int rows, int q_seq, int kv_seq,
+                                        int D, int Dv, int causal, int window, int kv_len,
+                                        float scale, void* stream) {
   if (bh <= 0 || rows <= 0) return 0;
   if (D < 1 || D > 256 || Dv < 1 || Dv > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return Dv <= 128 ? launch_rows<128>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal,
+  return Dv <= 128 ? launch_rows<128>(q, k, v, o, lse, bh, rows, q_seq, kv_seq, D, Dv, causal,
                                       window, kv_len, scale, s)
-                   : launch_rows<256>(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal,
+                   : launch_rows<256>(q, k, v, o, lse, bh, rows, q_seq, kv_seq, D, Dv, causal,
                                       window, kv_len, scale, s);
 }

@@ -16,6 +16,11 @@
 // rounded to bf16 before P . V; split-KV merges the softmax in another
 // order. Both are held to a tolerance against the twin on the card.
 //
+// With an lse buffer, both write each row's log-sum-exp in the natural log
+// from the (m, l) they keep: (m + log2 l) * ln 2, m being in the log2
+// domain; -inf for a row that sees no key (l = 0). The prefill writes it in
+// its epilogue, split-KV in its merge; without one, nothing changes.
+//
 // Prefill: flash_tc_fwd_kernel. Bound on an H100: operations (4 * D flops
 // per visible pair; ~0.69 TFLOP a layer of h2o-danube at 4 x 6144 tokens,
 // window 4096, against 989 TFLOP/s bf16). Design: one block per (tile of
@@ -73,6 +78,7 @@ constexpr int TC_BK = 64;              // keys a tile
 constexpr int TC_STAGES = 2;           // the prefill's K/V ring
 constexpr int SPLIT_STAGES = 2;        // split-KV's shared-memory ring
 constexpr int COMBINE_THREADS = 128;
+constexpr float LN2 = 0.69314718055994531f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -244,9 +250,9 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4], float& m_a, floa
 template <int P, int MT, int PV = P>
 __global__ void __launch_bounds__(32 * (8 / MT), P <= 80 ? 2 : 1)
 flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int n_tiles, int rows,
-                    int q_seq, int kv_seq, int D, int Dv, int causal, int window, int kv_len,
-                    float scale_log2, int vec) {
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int n_tiles, int rows, int q_seq, int kv_seq, int D, int Dv, int causal,
+                    int window, int kv_len, float scale_log2, int vec) {
   constexpr int THREADS = 32 * (8 / MT);
   constexpr int PITCH = P + 8;         // 16 bytes of pad: ldmatrix rows hit distinct banks
   constexpr int KSTEPS = P / 16;       // k-steps of S = Q . K^T
@@ -412,6 +418,12 @@ flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv_a = la > 0.0f ? 1.0f / la : 0.0f;
     const float inv_b = lb > 0.0f ? 1.0f / lb : 0.0f;
     const int rb = ra[mt] + 8;
+    if (lse != nullptr && t == 0) {      // the quad's running max is one value
+      if (ra[mt] < n_rows)
+        lse[bh * rows + r0 + ra[mt]] = la > 0.0f ? (m_a[mt] + log2f(la)) * LN2 : -INFINITY;
+      if (rb < n_rows)
+        lse[bh * rows + r0 + rb] = lb > 0.0f ? (m_b[mt] + log2f(lb)) * LN2 : -INFINITY;
+    }
     bf16* oa = o + (bh * rows + r0 + ra[mt]) * (long long)Dv;
     bf16* ob = o + (bh * rows + r0 + rb) * (long long)Dv;
 #pragma unroll
@@ -577,10 +589,12 @@ flash_split_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// One block per (batch * kv head, folded row): the splits merged in order.
+// One block per (batch * kv head, folded row): the splits merged in order;
+// thread 0 also writes the row's lse, when asked, from the same l.
 __global__ void __launch_bounds__(COMBINE_THREADS)
 flash_split_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                           bf16* __restrict__ o, int n_split, int rows, int Dv) {
+                           bf16* __restrict__ o, float* __restrict__ lse, int n_split, int rows,
+                           int Dv) {
   const long long bhr = blockIdx.x;                  // bh * rows + r
   const long long bh = bhr / rows;
   const int r = (int)(bhr - bh * rows);
@@ -588,6 +602,14 @@ flash_split_combine_kernel(const float* __restrict__ part_acc, const float* __re
   for (int sp = 0; sp < n_split; ++sp)
     mx = fmaxf(mx, part_ml[((bh * n_split + sp) * rows + r) * 2]);
   const float ms = mx == -INFINITY ? 0.0f : mx;
+  if (lse != nullptr && threadIdx.x == 0) {
+    float l = 0.0f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const long long p = (bh * n_split + sp) * rows + r;
+      l = fmaf(exp2_approx(part_ml[p * 2] - ms), part_ml[p * 2 + 1], l);
+    }
+    lse[bhr] = l > 0.0f ? (mx + log2f(l)) * LN2 : -INFINITY;
+  }
   for (int c = threadIdx.x; c < Dv; c += COMBINE_THREADS) {
     float l = 0.0f, a = 0.0f;
     for (int sp = 0; sp < n_split; ++sp) {
@@ -616,9 +638,9 @@ cudaError_t set_smem(K kernel, size_t smem, size_t& granted) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int P, int MT, int PV = P>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int bh, int rows, int q_seq,
-              int kv_seq, int D, int Dv, int causal, int window, int kv_len, float scale_log2,
-              int vec, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int rows,
+              int q_seq, int kv_seq, int D, int Dv, int causal, int window, int kv_len,
+              float scale_log2, int vec, cudaStream_t stream) {
   auto kernel = flash_tc_fwd_kernel<P, MT, PV>;
   const size_t smem = sizeof(bf16) * ((size_t)(TC_BQ + TC_STAGES * TC_BK) * (P + 8) +
                                       (size_t)TC_STAGES * TC_BK * (PV + 8));
@@ -627,8 +649,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int bh, int 
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (rows + TC_BQ - 1) / TC_BQ;
   kernel<<<(unsigned)((long long)bh * n_tiles), 32 * (8 / MT), smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, n_tiles, rows, q_seq, kv_seq,
-      D, Dv, causal, window, kv_len, scale_log2, vec);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, n_tiles, rows,
+      q_seq, kv_seq, D, Dv, causal, window, kv_len, scale_log2, vec);
   return (int)cudaGetLastError();
 }
 
@@ -659,13 +681,14 @@ bool vec_ok(const void* q, const void* k, const void* v, int D, int Dv) {
 }  // namespace
 
 // Prefill on the tensor cores. q (bh, rows, D), k (bh, kv_seq, D), v (bh,
-// kv_seq, Dv), o (bh, rows, Dv), contiguous bf16; rows = G * q_seq. window
-// <= 0: no window. kv_len: valid keys. D, Dv <= 256. scale_log2 = scale *
-// log2(e).
+// kv_seq, Dv), o (bh, rows, Dv), contiguous bf16; rows = G * q_seq. lse (bh,
+// rows) f32, or null: no lse. window <= 0: no window. kv_len: valid keys. D,
+// Dv <= 256. scale_log2 = scale * log2(e).
 REPRO_EXPORT int flash_attention_tc_launch(const void* q, const void* k, const void* v,
-                                           void* o, int bh, int rows, int q_seq, int kv_seq,
-                                           int D, int Dv, int causal, int window, int kv_len,
-                                           float scale_log2, void* stream) {
+                                           void* o, void* lse, int bh, int rows, int q_seq,
+                                           int kv_seq, int D, int Dv, int causal,
+                                           int window, int kv_len, float scale_log2,
+                                           void* stream) {
   if (bh <= 0 || rows <= 0) return 0;
   if (D < 1 || D > 256 || Dv < 1 || Dv > 256) return (int)cudaErrorInvalidValue;
   const int vec = vec_ok(q, k, v, D, Dv);
@@ -676,17 +699,17 @@ REPRO_EXPORT int flash_attention_tc_launch(const void* q, const void* k, const v
             : p <= 128             ? &launch_tc<128, 1>
             : D <= 192 && Dv <= 128 ? &launch_tc<192, 1, 128>
                                    : &launch_tc<256, 1>;
-  return tc(q, k, v, o, bh, rows, q_seq, kv_seq, D, Dv, causal, window, kv_len, scale_log2, vec,
-            s);
+  return tc(q, k, v, o, lse, bh, rows, q_seq, kv_seq, D, Dv, causal, window, kv_len, scale_log2,
+            vec, s);
 }
 
 // Decode, split over the kv axis: keys [k_begin, kv_end) in n_split splits of
 // `split` keys, a multiple of 128 (k_begin + split * n_split >= kv_end), rows
 // <= 16. part_acc (bh, n_split, rows, Dv) and part_ml (bh, n_split, rows, 2)
-// are f32 scratch.
+// are f32 scratch. lse (bh, rows) f32, or null: no lse.
 REPRO_EXPORT int flash_attention_split_launch(const void* q, const void* k, const void* v,
-                                              void* o, void* part_acc, void* part_ml, int bh,
-                                              int n_split, int split, int rows, int q_seq,
+                                              void* o, void* lse, void* part_acc, void* part_ml,
+                                              int bh, int n_split, int split, int rows, int q_seq,
                                               int kv_seq, int D, int Dv, int causal,
                                               int window, int k_begin, int kv_end,
                                               float scale_log2, void* stream) {
@@ -707,6 +730,6 @@ REPRO_EXPORT int flash_attention_split_launch(const void* q, const void* k, cons
     if (err != 0) return err;
   }
   flash_split_combine_kernel<<<(unsigned)((long long)bh * rows), COMBINE_THREADS, 0, s>>>(
-      (const float*)part_acc, (const float*)part_ml, (bf16*)o, n_split, rows, Dv);
+      (const float*)part_acc, (const float*)part_ml, (bf16*)o, (float*)lse, n_split, rows, Dv);
   return (int)cudaGetLastError();
 }

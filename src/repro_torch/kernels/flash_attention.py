@@ -3,12 +3,23 @@ and ``csrc/flash_attention_bf16.cu`` (bf16), the port of
 ``repro/kernels/flash_attention.py``.
 
     q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,Dv) → (B,Hq,Sq,Dv)
+    return_lse=True → (out, lse (B,Hq,Sq) f32)
 
 Online-softmax attention with causal masking, GQA (the G = Hq/Hkv query
 heads of a kv head folded into rows), a sliding window and ``kv_len``
 masking, queries at the end of the kv axis; f32 running max, denominator
 and accumulator; bf16 or f32 in, q's dtype out. Dv may differ from D. A
 row that sees no key is 0.
+
+``return_lse=True`` also returns each row's log-sum-exp of its visible
+scaled scores, ``m + log(l)`` in the natural log from the kernel's own
+running max m and denominator l, −inf for a row that sees no key: what a
+caller needs to merge attention over disjoint key sets (the sequence-sharded
+decode of :mod:`repro_torch.models.transformer`). Every variant writes it
+from the state it already keeps, into an f32 buffer the wrapper passes; with
+``return_lse=False`` the buffer is null and the kernels do what they did
+before, bit for bit, in the same launches. ``"simt"``'s lse equals the
+twin's bit for bit; the bf16 variants' is held to :data:`LSE_TOL`.
 
 Three hand kernels; :func:`variant` picks one from the dtype and the
 folded rows G·Sq:
@@ -46,6 +57,11 @@ DECODE_ROWS = 16        # folded rows a split-KV block serves
 SPLIT_TILE = 128        # keys a split-KV block stages at a time
 SPLIT_BLOCKS = 264      # split-KV blocks that fill an H100 once: two on each of 132 SMs
 VARIANTS = ("tc", "split", "simt")
+# |lse - twin| <= LSE_TOL * max(1, |twin|) for the bf16 variants: their l is an
+# f32 sum of ex2.approx terms (2^-22 each) over scores the tensor cores sum in
+# f32, so lse is an f32-grade quantity (nothing in it is rounded to bf16);
+# 2^-12 leaves room for the summation over 32k keys (n * 2^-24 at worst).
+LSE_TOL = 2.0 ** -12
 
 
 def variant(dtype: torch.dtype, rows: int) -> str:
@@ -73,8 +89,8 @@ def split_plan(bh: int, Sq: int, Skv: int, *, window: "int | None",
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, window: "int | None" = None,
-                    kv_len: "int | None" = None,
-                    sm_scale: "float | None" = None) -> torch.Tensor:
+                    kv_len: "int | None" = None, sm_scale: "float | None" = None,
+                    return_lse: bool = False):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     B, Hq, Sq, D = q.shape
@@ -89,10 +105,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_len = int(kv_len)
     where = backend.route(q, k, v)
     if where == "meta":
-        return _meta(q, k, v, causal=causal, window=window, kv_len=kv_len)
+        return _meta(q, k, v, causal=causal, window=window, kv_len=kv_len,
+                     return_lse=return_lse)
     if where == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len,
-                                       sm_scale=sm_scale)
+                                       sm_scale=sm_scale, return_lse=return_lse)
     backend.refuse_grad("flash_attention", q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes f32 or bf16 alike, got "
@@ -104,20 +121,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kind = variant(q.dtype, rows)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty(B, Hq, Sq, Dv, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if return_lse else None
     scale = sm_scale if sm_scale is not None else float(D) ** -0.5
     kv_end = Skv if kv_len is None else max(0, min(kv_len, Skv))
     with torch.cuda.device(q.device):
         if kind == "simt":
             lib = backend.library("flash_attention")
             err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, rows, Sq, Skv,
-                D, Dv, int(causal), window or 0, kv_end, backend.f32(scale), backend.stream(q))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, BH, rows, Sq,
+                Skv, D, Dv, int(causal), window or 0, kv_end, backend.f32(scale),
+                backend.stream(q))
             name = "flash_attention_launch"
         elif kind == "tc":
             lib = backend.library("flash_attention_bf16")
             err = lib.flash_attention_tc_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, rows, Sq, Skv,
-                D, Dv, int(causal), window or 0, kv_end,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, BH, rows, Sq,
+                Skv, D, Dv, int(causal), window or 0, kv_end,
                 backend.f32(backend.f32(scale) * math.log2(math.e)), backend.stream(q))
             name = "flash_attention_tc_launch"
         else:
@@ -127,7 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             part = torch.empty(max(1, n_part * (Dv + 2)), dtype=torch.float32, device=q.device)
             lib = backend.library("flash_attention_bf16")
             err = lib.flash_attention_split_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, part.data_ptr(),
                 part.data_ptr() + 4 * n_part * Dv, BH, n_split, split, rows, Sq, Skv, D, Dv,
                 int(causal),
                 window or 0, k_begin, kv_end,
@@ -136,7 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backend.check(lib, err, name)
     flash_attention.launches += 1
     flash_attention.launches_by[kind] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def visible_pairs(Sq: int, Skv: int, *, causal: bool, window: "int | None",
@@ -150,18 +170,22 @@ def visible_pairs(Sq: int, Skv: int, *, causal: bool, window: "int | None",
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def _meta(q, k, v, *, causal, window, kv_len) -> torch.Tensor:
+def _meta(q, k, v, *, causal, window, kv_len, return_lse=False):
     """Shape rule: (B, Hq, Sq, ·) q, (…, Dv) v → (B, Hq, Sq, Dv) in q's
-    dtype. Cost: q, k, v read and the output written once; a multiply and
-    an add a (visible pair, d) for QKᵀ and for PV."""
+    dtype, and with ``return_lse`` the (B, Hq, Sq) f32 lse. Cost: q, k, v
+    read and the outputs written once; a multiply and an add a (visible
+    pair, d) for QKᵀ and for PV."""
     B, Hq, Sq, D = q.shape
     Dv = v.shape[-1]
     pairs = B * Hq * visible_pairs(Sq, k.shape[2], causal=causal, window=window, kv_len=kv_len)
     size = q.element_size()
+    out = backend.meta_empty(B, Hq, Sq, Dv, dtype=q.dtype)
+    if return_lse:
+        out = (out, backend.meta_empty(B, Hq, Sq, dtype=torch.float32))
     return backend.meta_result(
-        "flash_attention", backend.meta_empty(B, Hq, Sq, Dv, dtype=q.dtype),
-        flops=2 * (D + Dv) * pairs,
-        nbytes=size * (q.numel() + k.numel() + v.numel() + B * Hq * Sq * Dv))
+        "flash_attention", out, flops=2 * (D + Dv) * pairs,
+        nbytes=size * (q.numel() + k.numel() + v.numel() + B * Hq * Sq * Dv)
+        + 4 * B * Hq * Sq * return_lse)
 
 
 flash_attention.launches = 0

@@ -264,10 +264,13 @@ def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, window: "int | None" = None,
-                        kv_len: "int | None" = None,
-                        sm_scale: "float | None" = None) -> torch.Tensor:
+                        kv_len: "int | None" = None, sm_scale: "float | None" = None,
+                        return_lse: bool = False):
     """Twin of K5: q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,Dv) →
-    (B,Hq,Sq,Dv) in q's dtype, queries at the end of the kv axis.
+    (B,Hq,Sq,Dv) in q's dtype, queries at the end of the kv axis; with
+    ``return_lse`` also each row's log-sum-exp ``m + log(l)`` (B,Hq,Sq) f32
+    from the final running max and denominator, −inf for a row that sees
+    no key.
 
     The kernel's steps, one eager op each, in f32: the G query heads of a
     kv head fold into rows (row r sits at position ``r % Sq + Skv − Sq``);
@@ -319,13 +322,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = torch.where(l[..., None] > 0, acc / l[..., None], zero)
-    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+    out = out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, Hq, Sq)
+    return out
 
 
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               causal: bool = False, window: "int | None" = None,
                               kv_len: "int | None" = None, sm_scale: "float | None" = None,
-                              k_begin: int, split: int) -> torch.Tensor:
+                              k_begin: int, split: int, return_lse: bool = False):
     """Split-KV attention — the algorithm of K5's bf16 decode kernel — in
     plain f32 PyTorch, for the tests and the smoke only. The keys
     [k_begin, kv_len), ``k_begin`` from the kernel's own plan
@@ -334,7 +340,8 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = −inf where the row sees none of the split's keys; then the splits
     merge in split order by the log-sum-exp rule, M = max m_s,
     l = Σ e^(m_s − M)·l_s, acc = Σ e^(m_s − M)·acc_s, out = acc / l, and 0
-    where l = 0."""
+    where l = 0; with ``return_lse`` also M + log(l) (B,Hq,Sq), −inf where
+    l = 0."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -348,6 +355,7 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros(BH, rows, device=dev)
     acc = torch.zeros(BH, rows, Dv, device=dev)
     parts = []
+    M_safe = torch.zeros(BH, rows, device=dev)
     for s0 in range(k_begin, kv_end, split):
         s1 = min(s0 + split, kv_end)
         mask = attention_mask(qpos, torch.arange(s0, s1, device=dev), causal=causal,
@@ -366,7 +374,10 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l = l + w * ls
             acc = acc + w[..., None] * accs
     out = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
-    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+    out = out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+    if return_lse:
+        return out, (M_safe + torch.log(l)).reshape(B, Hq, Sq)
+    return out
 
 
 def mha_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -48,8 +48,14 @@ collectives move on a rank mesh of that shape — among these the recsys
 ``serve`` and ``retrieval`` cells, whose ``build(mesh)`` gives the
 sharded function (:func:`repro_torch.models.recsys.sharded_cell_fn`:
 tables row-sharded over ``model``, the ranks along ``model`` repeating
-the towers and encoders, which the note says); otherwise ``null``: the
-port has no sharded implementation of that cell. A meta mesh traces a
+the towers and encoders, which the note says), and the dense LMs'
+``prefill`` and ``decode`` cells, whose ``build(mesh)`` gives theirs
+(:func:`repro_torch.models.transformer.sharded_cell_fn`: tensor-parallel
+prefill, sequence-sharded decode merged by K5's log-sum-exp; the note says
+what the ranks along ``model`` repeat); otherwise ``null``: the port has
+no sharded implementation of that cell (on the production meshes none is
+left; the reduced MoE LMs' serving cells, which route their experts
+without EP, are). A meta mesh traces a
 sharded function's dimension that does not split evenly at its padded
 block; the note says so where an argument does not split (a run on values
 refuses it).
@@ -92,6 +98,10 @@ TRAIN_SPLIT = ("per_device is that ideal split, not the port's sharded step, whi
 NO_SHARDED = "the port has no sharded implementation of this cell: collectives not counted"
 MODEL_REPEATS = ("the port's sharded function repeats the dense towers and encoders on the "
                  "ranks along model (recsys_rules replicate mlp and heads)")
+LM_REPEATS = ("flops, bytes and temporaries are the port's sharded function's: the ranks "
+              "along model repeat the norms and the residual stream, a prefill shard attends "
+              "the whole heads its wq columns touch (q gathered where they split a head), a "
+              "decode shard attends all heads over its slice of the cache")
 UNEVEN = ("an argument does not split evenly over its axes: traced at its padded block, as "
           "GSPMD pads it; a run on values refuses this split")
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"}
@@ -276,6 +286,8 @@ def run_cell(name: str, cell, mesh, mesh_name: str, out_dir, *, force: bool = Fa
             notes.append(TRAIN_SPLIT)
         if cell.kind in ("serve", "retrieval") and cell.fn is not None and hasattr(cell, "build"):
             notes.append(MODEL_REPEATS)
+        if cell.kind in ("prefill", "decode") and hasattr(cell, "build"):
+            notes.append(LM_REPEATS)
         if r["collectives"] is None:
             notes.append(NO_SHARDED)
         if hasattr(cell, "build") and _uneven(r["args"], r["specs"], mesh):

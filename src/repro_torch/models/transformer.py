@@ -18,7 +18,10 @@ Entry points:
 * ``lm_forward`` — full-sequence logits and the sum of the layers' MoE aux
   losses;
 * ``lm_prefill`` — prompt → (last-token logits, kv cache);
-* ``lm_decode``  — one token against the cache → (logits, the cache).
+* ``lm_decode``  — one token against the cache → (logits, the cache);
+* ``sharded_cell_fn`` — a dense LM's prefill or decode cell over a mesh
+  (``cell.build(mesh)``): tensor-parallel prefill, sequence-sharded decode
+  whose shards' attention merges by K5's log-sum-exp.
 
 Parameters live in an :class:`LM` module: the reference's tree with the
 scanned ``layers`` axis sliced into a ``ModuleList``. ``lm_param_defs``
@@ -54,10 +57,12 @@ is the reference's dry-run knob and changes nothing here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.backend import resolve_device
@@ -65,9 +70,12 @@ from repro_torch.models.attention import attention
 from repro_torch.models.common import (ParamDef, count_params, dense, gelu_mlp,
                                        gelu_mlp_defs, remat, rms_norm, swiglu_mlp,
                                        swiglu_mlp_defs, tree_map, unstack_layers)
+from repro_torch.models.embedding import sharded_lookup_local
 from repro_torch.models.gather import gather_rows
 from repro_torch.models.moe import MoEConfig, moe_defs, moe_ffn
 from repro_torch.models.rope import apply_rope
+from repro_torch.parallel import compat
+from repro_torch.parallel.compat import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -560,3 +568,303 @@ def lm_decode(params: LM, cache: dict, token, pos, cfg: LMConfig, *, device=None
         x = x + _ffn(lp["ffn"], rms_norm(x, lp["ln2"]), cfg)[0]
     x = rms_norm(x, params.ln_f)
     return dense(x, params.unembed)[:, 0], cache
+
+
+# -- sharded serving: the dense LMs' prefill and decode cells over a mesh -----------
+#
+# Bodies of a ``compat.shard_map`` under the cells' specs (``lm_rules``: heads,
+# mlp and vocab over ``model``; the batch over the batch axes; a decode cache's
+# slots over ``model``, or over (data, model) for long_500k). Every value in a
+# body carries the leading partition dim L (parallel/compat.py), so one body
+# runs on a StackedMesh and on a RankMesh.
+
+
+def _rep(t: torch.Tensor) -> torch.Tensor:
+    """A replicated leaf inside a body: its first partition's copy."""
+    return t[0]
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(L, ..., k) rows times each partition's own (L, k, n) block → (L, ..., n)."""
+    L = x.shape[0]
+    return torch.bmm(x.reshape(L, -1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[-1])
+
+
+def _gather_cols(*xs: torch.Tensor) -> list[torch.Tensor]:
+    """Column blocks (L, ..., c_i) of column-parallel projections, all-gathered
+    over ``model`` in one collective: the whole (L, ..., M·c_i) of each."""
+    widths = [x.shape[-1] for x in xs]
+    g = compat.all_gather(torch.cat(xs, -1), "model")
+    g = g.view(*g.shape[:-1], -1, sum(widths))
+    return [t.flatten(-2) for t in g.split(widths, -1)]
+
+
+def _cols_of(x: torch.Tensor, first: torch.Tensor, width: int) -> torch.Tensor:
+    """Each partition's ``width`` columns of (L, ..., n) from its own first
+    column ``first`` (L,)."""
+    idx = first.view(-1, *[1] * (x.dim() - 1)) + torch.arange(width, device=x.device)
+    return torch.gather(x, -1, idx.expand(*x.shape[:-1], width))
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel projection: each shard's partial product, summed over
+    ``model`` in coordinate order (in x's dtype: M rounded partials)."""
+    return compat.psum(_mm(x, w), "model")
+
+
+def _ffn_local(p, x, cfg: LMConfig):
+    """The dense FFN with its up projections column-parallel and its down
+    projection row-parallel; the output bias added once, after the sum."""
+    if cfg.ffn_act == "gelu":
+        bias = p["bi"].view(x.shape[0], *[1] * (x.dim() - 2), -1)      # each shard's block
+        u = F.gelu(_mm(x, p["wi"]) + bias, approximate="tanh")
+        return _row_parallel(u, p["wo"]) + _rep(p["bo"])
+    return _row_parallel(F.silu(_mm(x, p["wg"])) * _mm(x, p["wi"]), p["wo"])
+
+
+def _layer_local(params, i: int) -> dict:
+    return tree_map(lambda t: t[:, i], params["layers"])
+
+
+def prefill_heads(cfg: LMConfig, model: int) -> tuple[int, int]:
+    """(wq columns a ``model`` shard holds, heads a shard attends in prefill):
+    the whole heads its columns touch, the most any shard's touch (1.5 heads
+    of columns touch 2; half a head, 1). A shard attends that many heads from
+    the first its columns touch, moved back to fit where it would pass the
+    last head."""
+    H, Dh = cfg.n_heads, cfg.dh
+    cq = H * Dh // model
+    nh = max(-(-((j + 1) * cq) // Dh) - j * cq // Dh for j in range(model))
+    return cq, min(nh, H)
+
+
+def _tp_prefill_local(params, tokens, *, cfg: LMConfig, model: int, slots: int):
+    """Prefill inside a body: tokens (L, b, S) → (logits (L, b, V/M), cache
+    {"k", "v"} (L, layers, b, Hkv, slots/M, Dh): this shard's slot range of
+    the ring, laid out as the decode cell's cache)."""
+    L, b, S = tokens.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    G = H // Hkv
+    cq, nh = prefill_heads(cfg, model)
+    j = compat.axis_index("model")
+    h0 = torch.clamp(j * cq // Dh, max=H - nh)                      # (L,) first head
+    heads = h0[:, None] + torch.arange(nh, device=tokens.device)    # (L, nh)
+    dev = tokens.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)
+    sl = -(-slots // model)              # padded only on a meta mesh
+    take = min(S, slots)
+    base = S - take
+    # the position each local slot holds (p % slots == slot), zero where none
+    t = j[:, None] * sl + torch.arange(sl, device=dev)
+    held = base + (t - base) % slots                                # (L, sl)
+    kept = ((held < S) & (t < slots)).view(L, 1, 1, sl, 1)
+    at = torch.clamp(held, max=S - 1).view(L, 1, 1, sl, 1).expand(L, b, Hkv, sl, Dh)
+    cache = {key: torch.zeros(L, cfg.n_layers, b, Hkv, sl, Dh, dtype=cfg.dtype, device=dev)
+             for key in ("k", "v")}
+    x = sharded_lookup_local(params["embed"], tokens.long())        # (L, b, S, d), exact
+    for i in range(cfg.n_layers):
+        lp = _layer_local(params, i)
+        a = lp["attn"]
+        h = rms_norm(x, _rep(lp["ln1"]))
+        q = _mm(h, a["wq"])
+        if cq % Dh == 0:                     # whole heads a shard: its own q is all it needs
+            k, v = _gather_cols(_mm(h, a["wk"]), _mm(h, a["wv"]))
+            q = q.view(L, b, S, nh, Dh)
+        else:
+            q, k, v = _gather_cols(q, _mm(h, a["wk"]), _mm(h, a["wv"]))
+            q = torch.gather(q.view(L, b, S, H, Dh), 3,
+                             heads.view(L, 1, 1, nh, 1).expand(L, b, S, nh, Dh))
+        q = _rope(q.permute(0, 1, 3, 2, 4).reshape(L * b, nh, S, Dh), positions, cfg)
+        k = _rope(k.view(L * b, S, Hkv, Dh).transpose(1, 2), positions, cfg)
+        v = v.view(L * b, S, Hkv, Dh).transpose(1, 2)
+        k, v = k.reshape(L, b, Hkv, S, Dh), v.reshape(L, b, Hkv, S, Dh)
+        for key, e in (("k", k), ("v", v)):
+            cache[key][:, i] = torch.where(kept, torch.gather(e, 3, at), 0)
+        kv = (heads // G).view(L, 1, nh, 1, 1).expand(L, b, nh, S, Dh)
+        o = attention(q, torch.gather(k, 2, kv).view(L * b, nh, S, Dh),
+                      torch.gather(v, 2, kv).view(L * b, nh, S, Dh), causal=True,
+                      window=cfg.window)
+        o = o.view(L, b, nh, S, Dh).transpose(2, 3).reshape(L, b, S, nh * Dh)
+        o = _cols_of(o, j * cq - h0 * Dh, cq)                       # this shard's columns
+        x = x + _row_parallel(o, a["wo"])
+        x = x + _ffn_local(lp["ffn"], rms_norm(x, _rep(lp["ln2"])), cfg)
+    x = rms_norm(x[:, :, -1:], _rep(params["ln_f"]))
+    return _mm(x, params["unembed"])[:, :, 0], cache
+
+
+def _merge_slices(o: torch.Tensor, lse: torch.Tensor, seq_axes) -> torch.Tensor:
+    """Attention over the sequence shards merged by their log-sum-exp: each
+    partition's (L, R, Dv) output over its slice of the cache and (L, R) lse
+    all-gathered over ``seq_axes`` (one f32 collective), then, in coordinate
+    order, M = max lse, w_s = exp(lse_s − M), out = Σ w_s·out_s / Σ w_s. A
+    shard that saw no key has lse −inf: weight 0."""
+    L, R, Dv = o.shape
+    g = compat.all_gather(torch.cat([o.float(), lse[..., None]], -1), seq_axes)
+    g = g.view(L, R, -1, Dv + 1)
+    lses = g[..., Dv]
+    top = lses.amax(-1)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    num, den = torch.zeros_like(o, dtype=torch.float32), torch.zeros_like(top)
+    for s in range(g.shape[2]):
+        w = torch.exp(lses[..., s] - top)
+        num = num + w[..., None] * g[..., s, :Dv]
+        den = den + w
+    return (num / den[..., None]).to(o.dtype)
+
+
+def _tp_decode_local(params, cache, token, *, cfg: LMConfig, mesh, model: int, pos: int,
+                     slots: int, seq_axes: tuple[str, ...]):
+    """One decode step inside a body: token (L, b, 1) against the cache
+    blocks (L, layers, b, Hkv, sl, Dh) → (logits (L, b, V/M), the token's new
+    k and v rows (L, layers, b, Hkv, Dh), which the caller writes into the
+    whole cache). The slot ``pos % slots`` is written on the partitions that
+    hold it; every partition attends all heads over its own slice, K5 once
+    a partition that has a visible key, with its local kv_len (host ints
+    from the mesh's coordinates: nothing is read back)."""
+    L, b = token.shape[:2]
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    cq = H * Dh // model
+    sl = cache["k"].shape[-2]
+    slot, kv_len = pos % slots, min(pos + 1, slots)
+    shard = mesh.held_index(seq_axes)
+    lens = [min(max(kv_len - s * sl, 0), sl) for s in shard]
+    owners = [p for p, s in enumerate(shard) if s == slot // sl]
+    j = compat.axis_index("model")
+    dev = token.device
+    positions = torch.arange(pos, pos + 1, dtype=torch.int32, device=dev)
+    rows = {"k": [], "v": []}
+    x = sharded_lookup_local(params["embed"], token.long())         # (L, b, 1, d), exact
+    for i in range(cfg.n_layers):
+        lp = _layer_local(params, i)
+        a = lp["attn"]
+        h = rms_norm(x, _rep(lp["ln1"]))
+        q, k, v = _gather_cols(_mm(h, a["wq"]), _mm(h, a["wk"]), _mm(h, a["wv"]))
+        q = _rope(q.view(L * b, 1, H, Dh).transpose(1, 2), positions, cfg)
+        k = _rope(k.view(L * b, 1, Hkv, Dh).transpose(1, 2), positions, cfg).view(L, b, Hkv, Dh)
+        v = v.view(L, b, Hkv, Dh)
+        kc, vc = cache["k"][:, i], cache["v"][:, i]
+        for p in owners:
+            kc[p, :, :, slot % sl] = k[p]
+            vc[p, :, :, slot % sl] = v[p]
+        rows["k"].append(k)
+        rows["v"].append(v)
+        out = q.new_zeros(L, b, H, 1, Dh)
+        lse = torch.full((L, b, H, 1), float("-inf"), device=dev)
+        q = q.view(L, b, H, 1, Dh)
+        for p, n in enumerate(lens):
+            if n:
+                out[p], lse[p] = attention(q[p], kc[p], vc[p], kv_len=n, return_lse=True)
+        o = _merge_slices(out.view(L, b * H, Dh), lse.view(L, b * H), seq_axes)
+        o = o.view(L, b, model, cq)[torch.arange(L, device=dev), :, j]   # this shard's columns
+        x = x + _row_parallel(o.view(L, b, 1, cq), a["wo"])
+        x = x + _ffn_local(lp["ffn"], rms_norm(x, _rep(lp["ln2"])), cfg)
+    x = rms_norm(x, _rep(params["ln_f"]))
+    return (_mm(x, params["unembed"])[:, :, 0], torch.stack(rows["k"], 1),
+            torch.stack(rows["v"], 1))
+
+
+def _decode_seq_axes(cache_spec) -> tuple[str, ...]:
+    e = cache_spec["k"][3]
+    return (e,) if isinstance(e, str) else tuple(e)
+
+
+def sharded_cell_fn(cfg: LMConfig, kind: str, mesh, specs: tuple):
+    """A dense LM's ``prefill`` or ``decode`` cell over ``mesh``: its body in
+    a ``compat.shard_map`` under the cell's ``specs``. Takes the cell's
+    arguments (the parameters already on the mesh's device) and returns
+    what the plain cell returns:
+
+    * ``prefill``: (logits (B, V), cache) — tensor-parallel: the vocabulary
+      rows and columns, ``wq``/``wk``/``wv`` and the FFN's up projections
+      column-parallel, ``wo`` and the down projection row-parallel (a psum
+      over ``model``), the norms replicated; k and v all-gathered over
+      ``model`` (q too where a shard's columns split a head), each shard
+      attending the whole heads its ``wq`` columns touch (K5 "tc",
+      causal, the window) and keeping its columns of them; the cache comes
+      out as the decode cell takes it, each shard its slot range;
+    * ``decode``: (logits (B, V), cache) — the new token's q, k, v
+      all-gathered over ``model``, its k and v written into slot
+      ``pos % slots`` by the shard that holds it, every shard attending all
+      heads over its slice of the cache (K5 "split" with its lse), the
+      slices merged by :func:`_merge_slices`; the cache is updated in place,
+      as :func:`lm_decode` updates it.
+
+    A dimension that does not split evenly over its axes is refused
+    (``ValueError``); a meta mesh traces it at its padded block, and the
+    outputs are cut back to the global shapes."""
+    from repro_torch.parallel.sharding import lm_rules, param_specs
+    if cfg.moe is not None or cfg.mla is not None:
+        raise ValueError(f"{cfg.name}: the sharded LM cells are the dense ones")
+    if specs[0] != param_specs(lm_param_defs(cfg), lm_rules()):
+        raise ValueError("the sharded LM cells take lm_rules' parameter specs (no FSDP)")
+    model = mesh.shape["model"]
+    meta = mesh.device.type == "meta"
+    tokens_spec = specs[1] if kind == "prefill" else specs[2]
+    logits_spec = P(tokens_spec[0] if len(tokens_spec) else None, "model")
+    if kind == "prefill":
+        def mapped(params, tokens):
+            S = tokens.shape[1]
+            slots = _cache_slots(cfg, S)
+            cspec = P(None, tokens_spec[0], None, "model", None)
+            mesh.block_shape((slots,), P("model"), pad=meta)     # refuse an uneven ring
+            fn = compat.shard_map(
+                functools.partial(_tp_prefill_local, cfg=cfg, model=model, slots=slots),
+                mesh, in_specs=specs, out_specs=(logits_spec, {"k": cspec, "v": cspec}))
+            logits, cache = fn(params, tokens)
+            B = tokens.shape[0]
+            return logits[:B, :cfg.vocab], {key: c[:, :B, :, :slots] for key, c in cache.items()}
+    elif kind == "decode":
+        seq_axes = _decode_seq_axes(specs[1])
+        rows_spec = P(None, specs[1]["k"][1], None, None)
+
+        def mapped(params, cache, token, pos):
+            from repro_torch.configs.cells import decode_position
+            pos = decode_position(pos, cache)
+            slots = cache["k"].shape[3]
+            fn = compat.shard_map(
+                functools.partial(_tp_decode_local, cfg=cfg, mesh=mesh, model=model, pos=pos,
+                                  slots=slots, seq_axes=seq_axes),
+                mesh, in_specs=specs[:3], out_specs=(logits_spec, rows_spec, rows_spec))
+            logits, k_rows, v_rows = fn(params, cache, token)
+            B = token.shape[0]
+            cache["k"][:, :, :, pos % slots] = k_rows[:, :B]
+            cache["v"][:, :, :, pos % slots] = v_rows[:, :B]
+            return logits[:B, :cfg.vocab], cache
+    else:
+        raise ValueError(f"no sharded LM cell of kind {kind!r}")
+
+    @torch.inference_mode()
+    def run(params, *args):
+        have = params["embed"].device
+        if have.type != mesh.device.type:
+            raise ValueError(f"the parameters live on {have}, the mesh on {mesh.device}")
+        return mapped(params, *args)
+
+    return run
+
+
+
+def sharded_partials(kind: str, mesh, specs: tuple) -> int:
+    """How many partials a dense LM cell's sharded body sums where the
+    unsharded function has one rounded result: the ``model`` shards of
+    each row-parallel projection and, in a decode, also the sequence shards
+    whose attention :func:`_merge_slices` merges."""
+    n = mesh.shape["model"]
+    if kind == "decode":
+        n += math.prod(mesh.shape[a] for a in _decode_seq_axes(specs[1]))
+    return n
+
+
+def sharded_bound(cfg: LMConfig, kind: str, mesh, specs: tuple, want: torch.Tensor) -> float:
+    """The bound on |sharded − unsharded| over an output ``want`` of a dense
+    LM cell (logits, a cache): ((P + 1)·2u + 2·K·2⁻²⁴)·max|want|. P partials
+    (:func:`sharded_partials`) are each rounded once to the working type
+    and so is their sum, each at most u of the largest value (2⁻⁹ bf16,
+    2⁻²⁴ f32), and the unsharded run's own roundings double that; and a
+    GEMM over a column block may sum its K-term dot products (K the longest
+    reduction, max(d, d_ff, H·Dh)) in another f32 order than the whole
+    GEMM, 2·K·2⁻²⁴ at most."""
+    u = 2.0 ** -9 if want.dtype == torch.bfloat16 else 2.0 ** -24
+    K = max(cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.dh)
+    P = sharded_partials(kind, mesh, specs)
+    return ((P + 1) * 2 * u + 2 * K * 2.0 ** -24) * float(want.float().abs().max())

@@ -169,6 +169,23 @@ class Mesh:
         """An input on this mesh's device (numpy arrays converted)."""
         return torch.as_tensor(x).to(self.device)
 
+    def held_index(self, axes) -> list[int]:
+        """Host ints, one a partition this process holds (in L order): its
+        row-major index over ``axes`` — what :func:`flat_axis_index` holds
+        on the device, for a decision the host makes without reading the
+        device back (which K5 launches a sequence-sharded decode makes)."""
+        axes = self.axes(axes)
+        out = []
+        for coord in self._held_coords():
+            i = 0
+            for a in axes:
+                i = i * self.shape[a] + coord[a]
+            out.append(i)
+        return out
+
+    def _held_coords(self) -> list[dict]:
+        raise NotImplementedError
+
 
 class StackedMesh(Mesh):
     """Every partition of a ``shape`` mesh on one device (the card unless
@@ -183,6 +200,15 @@ class StackedMesh(Mesh):
             coords.append(flat % s)
             flat = flat // s
         self._coords = dict(zip(self.axis_names, reversed(coords)))
+
+    def _held_coords(self) -> list[dict]:
+        out = []
+        for p in range(self.size):
+            coord = {}
+            for a in reversed(self.axis_names):
+                p, coord[a] = divmod(p, self.shape[a])
+            out.append(coord)
+        return out
 
     def axis_index(self, axis: str) -> torch.Tensor:
         """(L,) int64: each partition's coordinate along ``axis``."""
@@ -298,6 +324,9 @@ class RankMesh(Mesh):
         self.device_mesh = init_device_mesh(device.type, tuple(shape),
                                             mesh_dim_names=tuple(names))
         self._coord = {a: self.device_mesh.get_local_rank(a) for a in self.axis_names}
+
+    def _held_coords(self) -> list[dict]:
+        return [dict(self._coord)]
 
     def axis_index(self, axis: str) -> torch.Tensor:
         (axis,) = self.axes(axis)

@@ -516,6 +516,36 @@ def test_flash_attention_kernel_equals_twin(cuda, B, Hq, Hkv, Sq, Skv, D, Dv, kw
         torch.testing.assert_close(got[:, :, qs].float(), oracle, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,Dv,kw,dtype", K5_CASES)
+def test_flash_attention_lse_equals_twin(cuda, B, Hq, Hkv, Sq, Skv, D, Dv, kw, dtype):
+    """``return_lse=True``: one launch of the same variant, its output the
+    bits of the call without the flag, and each row's lse against the
+    twin's: bitwise for f32 ("simt"), within ``LSE_TOL``·max(1, |twin|) for
+    the bf16 variants; −inf exactly where the twin's is."""
+    from repro_torch.kernels.flash_attention import LSE_TOL
+    g = torch.Generator(device=cuda).manual_seed(B * Skv + D + 1)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Hkv, Skv, Dv, generator=g, device=cuda).to(dtype)
+    kind = variant(dtype, Hq // Hkv * Sq)
+    plain = flash_attention(q, k, v, **kw)
+    before, by = flash_attention.launches, flash_attention.launches_by[kind]
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by[kind] == by + 1
+    _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(out, plain) and lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+    if dtype == torch.float32:
+        assert _same_bits(lse, want)
+        return
+    dead = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all())
+    err = (lse - want).abs()[~dead]
+    tol = LSE_TOL * torch.clamp(want.abs(), min=1.0)[~dead]
+    assert bool((err <= tol).all()), (float(err.max()), float((err / tol).max()))
+
+
 # K6: (B, L, D, table dtype). FM's linear table (D 1) and tower (D 10),
 # DCN-v2's (D 16), BST's and wider rows; B no multiple of a block's bags;
 # L past one staged tile of slots (15 at D 1); D past one block's 256

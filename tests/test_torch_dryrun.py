@@ -45,8 +45,8 @@ PER_DEVICE = {"flops", "bytes_accessed", "argument_bytes", "output_bytes", "temp
 COLLECTIVES = {"bytes_by_op", "counts", "total_bytes"}
 SHARDED_SERVING = {f"{arch}/{shape}" for arch in ("fm", "dcn-v2", "bst", "bert4rec")
                    for shape in ("serve_p99", "serve_bulk", "retrieval_cand")}
-UNSHARDED_LM = {f"{arch}/{shape}" for arch in ("starcoder2-3b", "stablelm-3b", "h2o-danube-1.8b")
-                for shape in ("prefill_32k", "decode_32k")} | {"h2o-danube-1.8b/long_500k"}
+DENSE_LM = {f"{arch}/{shape}" for arch in ("starcoder2-3b", "stablelm-3b", "h2o-danube-1.8b")
+            for shape in ("prefill_32k", "decode_32k")} | {"h2o-danube-1.8b/long_500k"}
 SERVE_MESHES = {"pod2": ((2, 2, 2), True), "pod1": ((4, 2), False)}
 SERVE_BYTES_CELLS = (("dcn-v2", "serve_p99"), ("fm", "retrieval_cand"))
 
@@ -137,14 +137,17 @@ def test_reduced_dry_run_needs_no_jax_and_writes_the_reference_keys(tmp_path):
                 assert rec["collectives"]["total_bytes"] > 0
                 assert dryrun.NO_SHARDED not in rec["note"]
                 assert dryrun.MODEL_REPEATS in rec["note"]
-            if rec["cell"] in UNSHARDED_LM:
-                assert rec["collectives"] is None and dryrun.NO_SHARDED in rec["note"]
+            if rec["cell"] in DENSE_LM:
+                assert set(rec["collectives"]) == COLLECTIVES
+                assert rec["collectives"]["total_bytes"] > 0
+                assert dryrun.NO_SHARDED not in rec["note"] and dryrun.LM_REPEATS in rec["note"]
         # the reduced MoE LMs route their experts without EP, so their LM
-        # serving cells join the 7 here; no other cell is left unsharded
+        # serving cells alone are left unsharded
         unsharded = {json.loads(f.read_text())["cell"] for f in files
                      if dryrun.NO_SHARDED in json.loads(f.read_text()).get("note", "")}
-        assert UNSHARDED_LM <= unsharded and all(
-            c.split("/")[1] in ("prefill_32k", "decode_32k", "long_500k") for c in unsharded)
+        assert not unsharded & DENSE_LM and all(
+            c.split("/")[0] in ("olmoe-1b-7b", "deepseek-v2-236b")
+            and c.split("/")[1] in ("prefill_32k", "decode_32k", "long_500k") for c in unsharded)
     assert sorted(p.relative_to(ROOT) for p in (ROOT / "benchmarks").rglob("*")) == before
 
 
@@ -199,20 +202,39 @@ def test_serving_argument_bytes_match_reference(arch, shape, mesh_name,
 
 
 def test_serving_collectives_match_a_rank_mesh(tmp_path):
-    """fm's reduced ``serve_p99`` on a stacked (2, 2) meta mesh: the dry
-    run's collectives are what compat counts on a (2, 2) rank mesh of 4
-    gloo processes, on every rank."""
-    cell = build_cells("fm", reduced=True)["serve_p99"]
-    rec = dryrun.run_cell("fm/serve_p99", cell, StackedMesh((2, 2), device="meta"), "test",
-                          tmp_path, verbose=False)
+    """fm's reduced ``serve_p99`` and starcoder2-3b's reduced
+    ``prefill_32k`` and ``decode_32k`` on a stacked (2, 2) meta mesh: the
+    dry run's collectives are what compat counts on a (2, 2) rank mesh of
+    4 gloo processes, on every rank. The LM cells' counts are their
+    bodies': a prefill layer gathers k and v (and q, where a shard's
+    columns split a head) and sums two row-parallel projections, a decode
+    layer gathers q, k and v and the slices' (out, lse) and sums the same
+    two; the embedding's psum, and the outputs' gathers, once a call."""
+    cells = {"fm/serve_p99": build_cells("fm", reduced=True)["serve_p99"]}
+    lm = build_cells("starcoder2-3b", reduced=True)
+    cells.update({f"starcoder2-3b/{s}": lm[s] for s in ("prefill_32k", "decode_32k")})
+    recs = {name: dryrun.run_cell(name, cell, StackedMesh((2, 2), device="meta"), "test",
+                                  tmp_path, verbose=False) for name, cell in cells.items()}
     r = subprocess.run([sys.executable, str(ROOT / "tests" / "torch_mesh_ranks.py"),
-                        "fm_serve", "4", str(tmp_path)], capture_output=True, text=True,
-                       timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+                        "serve_collectives", "4", str(tmp_path)], capture_output=True,
+                       text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
-    assert rec["collectives"]["counts"] == {"all-reduce": 2, "all-gather": 1}
+    assert recs["fm/serve_p99"]["collectives"]["counts"] == {"all-reduce": 2, "all-gather": 1}
+    layers = lm["prefill_32k"].fn.keywords["cfg"].n_layers
+    # prefill: per layer 1 gather, 2 sums; the embedding's sum; logits' and
+    # the cache's k and v gathers over data and model (2 each)
+    assert recs["starcoder2-3b/prefill_32k"]["collectives"]["counts"] == {
+        "all-reduce": 2 * layers + 1, "all-gather": layers + 6}
+    # decode: per layer 2 gathers, 2 sums; the embedding's sum; logits over
+    # data and model (2), the new k and v rows over data (1 each)
+    assert recs["starcoder2-3b/decode_32k"]["collectives"]["counts"] == {
+        "all-reduce": 2 * layers + 1, "all-gather": 2 * layers + 4}
     for rank in range(4):
-        got = json.loads(str(np.load(tmp_path / f"rank{rank}.npz")["collectives"]))
-        assert got == rec["collectives"], rank
+        out = np.load(tmp_path / f"rank{rank}.npz")
+        assert json.loads(str(out["collectives"])) == recs["fm/serve_p99"]["collectives"], rank
+        for name in ("starcoder2-3b/prefill_32k", "starcoder2-3b/decode_32k"):
+            got = json.loads(str(out[f"{name}/collectives"]))
+            assert got == recs[name]["collectives"], (rank, name)
 
 
 # -- the wrappers' shape rules on meta ---------------------------------------------------
@@ -275,8 +297,11 @@ def test_flash_attention_meta_shapes(B, Hq, Hkv, Sq, Skv, D, Dv, causal, window,
     k = torch.from_numpy(rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((B, Hkv, Skv, Dv)).astype(np.float32))
     kw = dict(causal=causal, window=window, kv_len=kv_len)
-    _check("flash_attention", flash_attention, (q, k, v), kw)
-    _check("flash_attention", flash_attention, (q.bfloat16(), k.bfloat16(), v.bfloat16()), kw)
+    for lse in (False, True):              # with return_lse: (out, (B, Hq, Sq) f32 lse)
+        kw["return_lse"] = lse
+        _check("flash_attention", flash_attention, (q, k, v), kw)
+        _check("flash_attention", flash_attention, (q.bfloat16(), k.bfloat16(), v.bfloat16()),
+               kw)
 
 
 def _blocks(Q, T, M, B, n_docs, seed=4):

@@ -388,3 +388,73 @@ def test_kernel_wrappers_refuse_mixed_devices():
     tf, dl, idf = _bm25_inputs(1, (2, 2, 128))
     with pytest.raises(ValueError, match="several devices"):
         bm25_block_scores(*_t(tf, dl), torch.zeros(2, device="meta"), 0.9, 0.4, 1.0)
+
+
+# -- K5's log-sum-exp (return_lse) ------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Skv, D, Dv, kwargs): causal, window, kv_len, GQA, Dv != D,
+# a decode row; kv_len=0 and a window past a short kv_len leave rows that see
+# no key (lse −inf)
+LSE_CASES = [
+    (2, 4, 4, 9, 9, 8, 8, dict(causal=True)),
+    (1, 4, 2, 12, 12, 8, 8, dict(causal=True, window=4)),
+    (2, 6, 2, 1, 70, 16, 16, dict(kv_len=50)),
+    (1, 4, 1, 5, 20, 8, 12, dict(kv_len=17)),
+    (1, 2, 2, 3, 10, 4, 6, dict(kv_len=0)),
+    (1, 2, 1, 6, 6, 8, 8, dict(causal=True, window=2, kv_len=3)),
+]
+
+
+def _lse_oracle(q, k, kw) -> torch.Tensor:
+    """``torch.logsumexp`` over each row's masked, scaled scores (f64)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qpos = torch.arange(Sq) + (Skv - Sq)
+    mask = tref.attention_mask(qpos, torch.arange(Skv), causal=kw.get("causal", False),
+                               window=kw.get("window"), kv_len=kw.get("kv_len", Skv))
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q.double().reshape(B, Hkv, Hq // Hkv, Sq, D),
+                     k.double()) * float(D) ** -0.5
+    return torch.logsumexp(torch.where(mask, s, float("-inf")), -1).reshape(B, Hq, Sq)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,Dv,kw", LSE_CASES)
+def test_flash_attention_twins_lse_match_logsumexp(B, Hq, Hkv, Sq, Skv, D, Dv, kw):
+    """Both twins' lse is the log-sum-exp of the row's visible scaled scores
+    (2⁻²⁰ of max(1, |lse|): f32 against f64), −inf exactly where a row sees
+    no key; their outputs are those of the calls without ``return_lse``, and
+    the wrapper on the CPU is the twin."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(B * 100 + Sq * 10 + Skv)
+    q, k, v = _t(rng.standard_normal((B, Hq, Sq, D)).astype(np.float32),
+                 rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32),
+                 rng.standard_normal((B, Hkv, Skv, Dv)).astype(np.float32))
+    want = _lse_oracle(q, k, kw)
+    dead = torch.isinf(want)
+    assert bool(dead.any()) == (kw.get("kv_len") == 0 or "window" in kw and "kv_len" in kw)
+    split = dict(k_begin=0, split=16)
+    runs = {"twin": lambda **x: tref.flash_attention_ref(q, k, v, **kw, **x),
+            "split twin": lambda **x: tref.flash_attention_split_ref(q, k, v, **kw, **split, **x),
+            "wrapper": lambda **x: flash_attention(q, k, v, **kw, **x)}
+    for name, run in runs.items():
+        out, lse = run(return_lse=True)
+        assert lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32, name
+        assert torch.equal(out, run()), name
+        assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all()), name
+        tol = 2.0 ** -20 * torch.clamp(want.abs(), min=1.0)
+        assert bool(((lse.double() - want).abs() <= tol)[~dead].all()), name
+    assert torch.equal(runs["wrapper"](return_lse=True)[1], runs["twin"](return_lse=True)[1])
+
+
+def test_flash_attention_without_lse_keeps_its_bits():
+    """``return_lse=False`` (the default) returns the tensor alone, the
+    twin's bits, as before the flag: bf16 in, bf16 out."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(5)
+    q, k, v = (t.bfloat16() for t in _t(rng.standard_normal((1, 4, 7, 8)).astype(np.float32),
+                                        rng.standard_normal((1, 2, 7, 8)).astype(np.float32),
+                                        rng.standard_normal((1, 2, 7, 8)).astype(np.float32)))
+    got = flash_attention(q, k, v, causal=True)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16),
+                       tref.flash_attention_ref(q, k, v, causal=True).view(torch.int16))
+    assert torch.equal(got, flash_attention(q, k, v, causal=True, return_lse=True)[0])

@@ -275,12 +275,82 @@ def sharded_serve_outputs(mesh, cells=SERVE_CELLS) -> dict:
     return out
 
 
+LM_CELLS = [(arch, shape) for arch in ("starcoder2-3b", "stablelm-3b", "h2o-danube-1.8b")
+            for shape in ("prefill_32k", "decode_32k")] + [("h2o-danube-1.8b", "long_500k")]
+# decode positions: the reduced decode_32k ring of 64 slots at 40 (over 2
+# sequence shards, one full, one partial); long_500k's ring of 16 slots past
+# its wrap (every shard full)
+LM_POS = {"decode_32k": 40, "long_500k": 21}
+
+
+def lm_inputs(arch: str, shape: str, *, multi_pod: bool = False, seed: int = 0,
+              pos: "int | None" = None):
+    """A reduced dense LM prefill or decode cell and its seeded numpy inputs:
+    ``(cell, cfg, args)`` — parameters as ``numpy_params`` draws them,
+    tokens over the vocabulary, a decode cache |normal × 0.05| and its
+    position (LM_POS unless ``pos``) as an int32 scalar."""
+    from repro_torch.configs import build_cells, get_arch
+    from repro_torch.models.transformer import lm_param_defs
+    cfg = get_arch(arch).reduced_config()
+    cell = build_cells(arch, multi_pod=multi_pod, reduced=True)[shape]
+    defs = lm_param_defs(cfg)
+    params = _nested(defs, numpy_params(defs, seed))
+    rng = np.random.default_rng(seed + 1)
+    tokens = rng.integers(0, cfg.vocab, tuple(cell.args[-1 if cell.kind == "prefill" else 2]
+                                              .shape)).astype(np.int32)
+    if cell.kind == "prefill":
+        return cell, cfg, (params, tokens)
+    cache = {k: np.abs(rng.standard_normal(tuple(cell.args[1][k].shape)) * 0.05
+                       ).astype(np.float32) for k in sorted(cell.args[1])}
+    return cell, cfg, (params, cache, tokens, np.int32(LM_POS[shape] if pos is None else pos))
+
+
+def lm_args_on(args, device="cpu") -> tuple:
+    """``lm_inputs``' numpy arguments as the port's tensors (a fresh cache:
+    the decode writes its slot in place)."""
+    def tree(a):
+        if isinstance(a, dict):
+            return {k: tree(v) for k, v in a.items()}
+        return torch.from_numpy(np.array(a)).to(device)
+    return tuple(tree(a) for a in args)
+
+
+def sharded_lm_outputs(mesh, cells=LM_CELLS) -> dict:
+    """Each reduced dense LM prefill and decode cell's sharded function on
+    ``mesh`` (``<arch>/<shape>/<i>``: logits, then the cache's k and v),
+    and what compat's collectives moved (``<arch>/<shape>/collectives``,
+    as JSON)."""
+    import json
+
+    from repro_torch.parallel import compat
+    out = {}
+    for arch, shape in cells:
+        cell, cfg, args = lm_inputs(arch, shape)
+        fn = cell.build(mesh)[0]
+        with compat.count_collectives() as log:
+            logits, cache = fn(*lm_args_on(args))
+        for i, t in enumerate((logits, cache["k"], cache["v"])):
+            out[f"{arch}/{shape}/{i}"] = t.numpy()
+        out[f"{arch}/{shape}/collectives"] = np.array(json.dumps(log.record(), sort_keys=True))
+    return out
+
+
+def serve_collectives(mesh) -> dict:
+    """fm's serve_p99 and starcoder2-3b's prefill_32k and decode_32k on
+    ``mesh``: the dry-run test's rank side."""
+    out = sharded_serve_outputs(mesh, [("fm", "serve_p99")])
+    out.update(sharded_lm_outputs(mesh, [("starcoder2-3b", "prefill_32k"),
+                                         ("starcoder2-3b", "decode_32k")]))
+    return out
+
+
 # case: (mesh shape, outputs)
 CASES = {"search": ((4, 2), search_outputs), "lookup": ((2, 4), lookup_outputs),
          "bert4rec": ((1, 4), bert4rec_outputs), "ep_moe": ((4, 2), ep_moe_outputs),
          "sharded_train": ((4, 2), sharded_train_outputs),
          "sharded_serve": ((2, 2), sharded_serve_outputs),
-         "fm_serve": ((2, 2), lambda mesh: sharded_serve_outputs(mesh, [("fm", "serve_p99")]))}
+         "sharded_lm": ((2, 2), sharded_lm_outputs),
+         "serve_collectives": ((2, 2), serve_collectives)}
 
 
 def _rank(rank: int, case: str, world: int, workdir: str) -> None:
