@@ -9,6 +9,7 @@ against its plain PyTorch twin.
     python3 chip_smoke.py                 # 50,000-doc partition (the default)
     python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
+    python3 chip_smoke.py --simt-only [--other DIR]  # phases 1, 2, then K5's f32 kernel (no ok line)
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
     python3 chip_smoke.py --topk-only     # phases 1, 2, then K2 and K4 alone (no ok line)
     python3 chip_smoke.py --k1-k6-only    # phases 1, 2, then K1 and K6 alone (no ok line)
@@ -92,7 +93,11 @@ Phases (each raises on failure; the script then exits non-zero):
      (bitwise f32, ``LSE_TOL`` bf16), timed with and without the lse
      beside the twin, ``scaled_dot_product_attention`` and the bound; last,
      decode == forward at full width in f32 (2 prompts of 4,608 tokens, 8
-     steps; the reference test's rtol/atol 2e-2 and 5e-2);
+     steps; the reference test's rtol/atol 2e-2 and 5e-2), every f32 K5
+     launch on the tiled path, then (d): K5's f32 kernel bitwise == its
+     twin (outputs and lse) on this prefill's layer-0 q/k/v (2 × 32 heads
+     over 8 kv heads × 4,608 × 80, causal, window 4,096) and timed as
+     above;
   8. recsys serving at full width (fm, dcn-v2, bst, bert4rec at
      ``full_config()``, f32, random weights from a seeded
      ``torch.Generator``, each architecture's tables released before the
@@ -103,9 +108,15 @@ Phases (each raises on failure; the script then exits non-zero):
      route for all four. The launch counters are set to 0 before each route
      and checked after it: one K6 launch per fm forward and per fm or dcn-v2
      tower, n_blocks K5 launches per bst or bert4rec encoder, K2 for every
-     top-k, K4 only on the K4 route, never K1 or K3. K6 equals its twin
-     bitwise on every architecture's real tables and batch ids and on a bf16
-     copy of a table; K5 its twin on the encoders' layer-0 q/k/v; fm and
+     top-k, K4 only on the K4 route, never K1 or K3; every K5 launch the
+     f32 kernel, bst's on its short path, bert4rec's on its tiled one. K6
+     equals its twin bitwise on every architecture's real tables and batch
+     ids and on a bf16 copy of a table; K5's f32 kernel its twin (outputs
+     and lse, bitwise) on layer 0's q/k/v of the sequences the encoders
+     attend (bst's [history; target]) at (a) bst's bulk (262,144 × 8 heads
+     × 21 × 4), (b) its p99 (512 rows) and (c) a bert4rec chunk (2,048 × 2
+     × 200 × 32), each timed beside the twin, SDPA (in turns) and the
+     bound; fm and
      dcn-v2 logits of 64 rows match a float64 evaluation on the host; the two
      retrieval routes agree; bert4rec's serving top-100 equals a matmul +
      ``ref.topk_ref``. K6 is timed beside its twin,
@@ -274,6 +285,11 @@ tower (262,144 × 39, D 10), fm's linear term (D 1) and dcn-v2's tower
 twin and timed in turns with it (K6 also beside ``F.embedding_bag``), K1's
 device time split by kernel.
 
+``--simt-only`` runs phases 1-2 and then K5's f32 kernel alone at (a)-(d)
+on seeded inputs, as phases 7 and 8 check and time it; with ``--other DIR``
+(an earlier commit unpacked by ``git archive``) that tree's f32 kernel is
+built too, held bitwise to this one and timed in turns with it.
+
 ``--k3-only`` runs phases 1-2 and then K3's two entry points and the eager
 chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
 ``doc_len`` table, as phase 4 runs them.
@@ -294,6 +310,7 @@ and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -906,7 +923,8 @@ def k4_phase(app, cfg, queries, torch, ref, k4, device):
 # range kernel; its theta kernel launches once a call beside it.
 TRACE_NAMES = {"K1": ("pruned_range_kernel",), "K2": ("topk_select_kernel",),
                "K3": ("bm25_block_kernel",), "K4": ("dot_topk_tiles_kernel",),
-               "K5": ("flash_fwd_kernel", "flash_tc_fwd_kernel", "flash_split_fwd_kernel"),
+               "K5": ("flash_short_kernel", "flash_tiled_kernel", "flash_tc_fwd_kernel",
+                      "flash_split_fwd_kernel"),
                "K6": ("embedding_bag_kernel",)}
 PROFILE_ATTEMPTS = 3
 # Host-only time on either side of the recorded queries: the trace keeps a
@@ -916,7 +934,7 @@ PROFILE_ATTEMPTS = 3
 PROFILE_MARGIN_S = 0.05
 
 
-def profile_window(tag, name, run, queries, kern) -> None:
+def profile_window(tag, name, run, queries, kern, top: int = 4) -> None:
     """Device busy share over ``run(q)`` for each of ``queries[1:]``, from a
     ``torch.profiler`` trace whose first step, ``run(queries[0])``, only
     warms the profiler up and is not recorded. The launch counters are set
@@ -964,7 +982,7 @@ def profile_window(tag, name, run, queries, kern) -> None:
     print(f"[{tag}] profile {name}, {len(queries) - 1} warm queries (trace complete: "
           f"{traced} launches == counters, attempt {attempt}): wall {wall * 1e3:.3f} ms, "
           f"device busy {dev_us / 1e3:.3f} ms ({dev_us / 1e4 / wall:.1f}% busy)", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:4]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{tag}]   {e.key[:60]:60s} {e.self_device_time_total:10.1f} us x{e.count}",
               flush=True)
 
@@ -1249,12 +1267,10 @@ def k5_bound(q, k, v, *, causal=False, window=None, kv_len=None,
     """The least time for one K5 call: operations on the visible (query,
     key) pairs over the bf16 tensor-core peak (f32: the CUDA-core peak),
     or q, k, v read and the output written once over the HBM rate."""
+    from repro_torch.kernels.flash_attention import visible_pairs
     B, Hq, Sq, D = q.shape
     Skv, Dv = k.shape[2], v.shape[-1]
-    qpos = np.arange(Sq) + (Skv - Sq)
-    hi = np.minimum(qpos + 1 if causal else Skv, Skv if kv_len is None else kv_len)
-    lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
-    pairs = int(np.maximum(hi - lo, 0).sum()) * B * Hq
+    pairs = visible_pairs(Sq, Skv, causal=causal, window=window, kv_len=kv_len) * B * Hq
     size = q.element_size()
     n_bytes = size * (q.numel() + k.numel() + v.numel() + B * Hq * Sq * Dv)
     peak = BF16_FLOPS if size == 2 else F32_FLOPS
@@ -1274,8 +1290,9 @@ def same_bits(a, b) -> bool:
 def reset(kern) -> None:
     for fn in kern.values():
         fn.launches = 0
-        if hasattr(fn, "launches_by"):
-            fn.launches_by = dict.fromkeys(fn.launches_by, 0)
+        for by in ("launches_by", "launches_by_path"):
+            if hasattr(fn, by):
+                setattr(fn, by, dict.fromkeys(getattr(fn, by), 0))
 
 
 def k5_variants(kern, route: str, expected: dict) -> dict:
@@ -1284,6 +1301,17 @@ def k5_variants(kern, route: str, expected: dict) -> dict:
     got = dict(kern["K5"].launches_by)
     want = {name: expected.get(name, 0) for name in got}
     require(got == want, f"{route}: K5 variants {got}, expected {want}")
+    return got
+
+
+def simt_paths(kern, route: str, expected: dict) -> dict:
+    """K5's f32 ("simt") counters after a route's run, by path (short,
+    tiled): ``expected`` exactly, the other path never, and no bf16
+    variant."""
+    got = dict(kern["K5"].launches_by_path)
+    want = {name: expected.get(name, 0) for name in got}
+    require(got == want, f"{route}: K5 f32 paths {got}, expected {want}")
+    k5_variants(kern, route, {"simt": sum(want.values())})
     return got
 
 
@@ -1592,11 +1620,12 @@ def k5_timing(name, r, case, k5, ref, torch, reps, tag="7") -> None:
           f"({r['bound'][0] / r['graph_ms'] * 100:.1f} % in the graph)", flush=True)
 
 
-def lm_check(arch, kern, torch, device="cuda", seed=1, check=LM_CHECK):
+def lm_check(arch, kern, ref, torch, device="cuda", seed=1, check=LM_CHECK):
     """Phase 7d, the reference's own invariant (``tests/test_models.py``):
     prefill + decode steps reproduce the full forward's logits, at full
     width in f32 with TF32 off, on prompts longer than the window."""
     from repro_torch.data.lm import LMDataConfig, LMTokenStream
+    from repro_torch.kernels.flash_attention import simt_path
     from repro_torch.models.common import init_params
     from repro_torch.models.transformer import (LM, lm_decode, lm_forward, lm_param_defs,
                                                 lm_prefill)
@@ -1623,11 +1652,29 @@ def lm_check(arch, kern, torch, device="cuda", seed=1, check=LM_CHECK):
         require(bool(torch.allclose(step, full[:, 1 + t], rtol=5e-2, atol=5e-2)),
                 f"f32 decode step {t} != forward (max abs err {errs[-1]})")
     launches = counted(kern, "lm:f32-check", {"K5": L * (2 + steps)})
+    G, slots = cfg.n_heads // cfg.n_kv_heads, cache["k"].shape[3]
+    want = collections.Counter({simt_path(G * (S + steps), S + steps, cfg.dh, cfg.dh): L})
+    want[simt_path(G * S, S, cfg.dh, cfg.dh)] += L                  # the prefill
+    want[simt_path(G, slots, cfg.dh, cfg.dh)] += L * steps          # the decode steps
+    paths = simt_paths(kern, "lm:f32-check", want)
     print(f"[7] decode == forward at full width in f32 ({B} prompts x {S} tokens, ring of "
           f"{cache['k'].shape[3]} slots, {steps} steps): prefill logits max abs err "
           f"{errs[0]:.3e} (rtol/atol 2e-2), decode steps max abs err {max(errs[1:]):.3e} "
-          f"(rtol/atol 5e-2); largest |logit| {float(full.abs().max()):.3f}", flush=True)
-    return launches
+          f"(rtol/atol 5e-2); largest |logit| {float(full.abs().max()):.3f}; K5 f32 paths "
+          f"{paths}", flush=True)
+    # (d): the f32 kernel on layer 0's q/k/v of this prefill, bitwise and timed
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import _qkv
+    del full, pl, step, cache
+    with torch.inference_mode():
+        lp = model.layers[0]
+        positions = torch.arange(S, dtype=torch.int32, device=toks.device)
+        q, k, v = (t.contiguous() for t in _qkv(lp["attn"], rms_norm(
+            model.embed[toks[:, :S].long()], lp["ln1"]), cfg, positions))
+    del model
+    case = (q, k, v, dict(causal=True, window=cfg.window))
+    simt = simt_case("(d) f32 prefill", case, kern["K5"], ref, torch, reps=3, tag="7")
+    return launches, paths, simt
 
 
 def lm_phase(kern, ref, torch, arch_name=LM_ARCH, serve=LM_SERVE, check=LM_CHECK,
@@ -1663,7 +1710,9 @@ def lm_phase(kern, ref, torch, arch_name=LM_ARCH, serve=LM_SERVE, check=LM_CHECK
     checks = k5_checks(model, cfg, prompts, cache, kern["K5"], ref, torch)
     del model, cache
     torch.cuda.empty_cache()
-    launches["lm:f32-check"] = lm_check(arch, kern, torch, device, seed=seed + 1, check=check)
+    launches["lm:f32-check"], paths, simt = lm_check(arch, kern, ref, torch, device,
+                                                      seed=seed + 1, check=check)
+    serve_r["simt"] = {"(d)": simt, "paths": {"lm:f32-check": paths}}
     torch.cuda.empty_cache()
     print(f"[7] phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return serve_r, checks, launches
@@ -1871,8 +1920,25 @@ def retrieval_agree(u, cand, kern_route, plain_route) -> int:
     return int(differ.size)
 
 
-def k5_encoder_check(params, cfg, seq, k5, ref, torch) -> float:
-    """K5 against its twin, bitwise, on the encoder's layer-0 q/k/v."""
+# K5's f32 kernel timed at the encoders' served shapes: (label, architecture,
+# rows, reps); bert4rec's bulk call is 128 chunks of 2,048 sequences, each
+# chunk two K5 launches at (c)
+SIMT_SHAPES = (("(a) bst serve_bulk", "bst", 262_144, 10), ("(b) bst serve_p99", "bst", 512, 50),
+               ("(c) bert4rec chunk", "bert4rec", 2048, 20))
+
+
+def served_seq(cfg, batch, device, torch):
+    """The token ids the encoder attends: bst's [history; target] (as
+    ``models/recsys.py::_bst`` builds it), bert4rec's sequence."""
+    seq = torch.as_tensor(batch["seq"]).to(device)
+    if cfg.kind == "bst":
+        seq = torch.cat([seq, torch.as_tensor(batch["target"]).to(device)[:, None]], dim=1)
+    return seq
+
+
+def encoder_qkv(params, cfg, seq, torch):
+    """The encoder's layer-0 q, k, v (B, H, S, d / H) over ``seq`` as
+    ``models/recsys.py::_tx_block`` hands them to K5: transposed views."""
     from repro_torch.models.common import dense
     from repro_torch.models.embedding import embedding_lookup
     with torch.inference_mode():
@@ -1880,12 +1946,33 @@ def k5_encoder_check(params, cfg, seq, k5, ref, torch) -> float:
         p = params["b0"]
         B, S, d = x.shape
         H = cfg.n_heads
-        q, k, v = (dense(x, p[w]).reshape(B, S, H, d // H).transpose(1, 2).contiguous()
-                   for w in ("wq", "wk", "wv"))
-    got, want = k5(q, k, v), ref.flash_attention_ref(q, k, v)
-    torch.cuda.synchronize()
-    require(same_bits(got, want), f"K5 != twin on {cfg.name}'s layer 0, q {tuple(q.shape)}")
-    return max_abs_err(got, want)
+        return tuple(dense(x, p[w]).reshape(B, S, H, d // H).transpose(1, 2)
+                     for w in ("wq", "wk", "wv"))
+
+
+def simt_case(name, case, k5, ref, torch, reps, tag="8") -> dict:
+    """K5's f32 kernel on one case (q, k, v, kwargs): :func:`k5_check`
+    (bitwise == the twin, outputs and lse; the dense oracle; the twin's
+    time, once), each of its two calls one launch of the path
+    :func:`simt_path` names, then :func:`k5_timing` (the kernel, with lse,
+    SDPA in turns, CUDA graphs) and the bound."""
+    from repro_torch.kernels.flash_attention import simt_path
+    a, b, c, kw = case
+    path = simt_path(a.shape[1] // b.shape[1] * a.shape[2], b.shape[2], a.shape[3], c.shape[3])
+    before = dict(k5.launches_by_path)
+    r = k5_check(name, k5, ref, torch, a, b, c, kw, tag=tag)
+    ran = {key: k5.launches_by_path[key] - n for key, n in before.items()}
+    require(ran == {key: 2 * (key == path) for key in ran},
+            f"K5 ({name}): f32 paths {ran}, expected 2 on {path}")
+    k5_timing(name, r, case, k5, ref, torch, reps=reps, tag=tag)
+    r["path"] = path
+    return r
+
+
+def simt_entry(r) -> dict:
+    """One shape of the f32 kernel's entry in the kernels line."""
+    return {**case_entry(r), **{key: r[key] for key in ("lse_ms", "library_graph_ms", "path",
+                                                         "copy_ms") if key in r}}
 
 
 def recsys_arch(name, kern, ref, torch, device, seed):
@@ -1894,6 +1981,7 @@ def recsys_arch(name, kern, ref, torch, device, seed):
     from repro_torch.configs import get_arch
     from repro_torch.models import recsys as tr
     from repro_torch.kernels.dot_topk import survivors
+    from repro_torch.kernels.flash_attention import simt_path
     from repro_torch.models.common import init_params, tree_leaves
     cfg = get_arch(name).full_config()
     base = torch.cuda.memory_allocated()
@@ -1937,6 +2025,10 @@ def recsys_arch(name, kern, ref, torch, device, seed):
         chunks = -(-B // tr.BERT4REC_CHUNK) if b4r else 1
         ms, launches[route] = timed_route(kern, route, lambda: answers.__setitem__(
             shape, serve(batch)), reps, {n: c * chunks for n, c in per_forward.items()}, torch)
+        if "K5" in per_forward:           # the encoder attends S tokens, S rows, dh wide
+            S, dh = cfg.seq_len + (cfg.kind == "bst"), cfg.embed_dim // cfg.n_heads
+            out.setdefault("simt_paths", {})[route] = simt_paths(
+                kern, route, {simt_path(S, S, dh, dh): launches[route]["K5"]})
         got = answers[shape]
         if b4r:
             vals, ids = got
@@ -1952,9 +2044,9 @@ def recsys_arch(name, kern, ref, torch, device, seed):
               f"p99 {out[shape]['p99']:.3f} ms ({out[shape]['rows_s']:.0f} rows/s at p50); "
               f"launches {launches[route]}", flush=True)
 
-    for shape, (batch, reps) in sizes.items():
+    for shape, (batch, reps) in sizes.items():       # 8 lines: the strided copies show
         profile_window("8", f"{name} {shape}", lambda _: serve(batch),
-                       range(6 if shape == "serve_p99" else min(3, reps + 1)), kern)
+                       range(6 if shape == "serve_p99" else min(3, reps + 1)), kern, top=8)
 
     # K6 against its twin on this architecture's real tables and ids
     from repro_torch.models.recsys import _flat_ids
@@ -1981,9 +2073,26 @@ def recsys_arch(name, kern, ref, torch, device, seed):
     else:
         seq = torch.as_tensor(p99["seq"]).to(device)
         errs.append(k6_case(kern["K6"], ref, params["item_emb"], seq.to(torch.int32), torch))
-        out["k5_err"] = k5_encoder_check(params, cfg, seq, kern["K5"], ref, torch)
         print(f"[8] {name}: K6 == twin bitwise on the item table pooled over the histories "
-              f"{tuple(seq.shape)}; K5 == twin bitwise on layer 0's q/k/v", flush=True)
+              f"{tuple(seq.shape)}", flush=True)
+        # K5's f32 kernel on layer 0's q/k/v of the served sequences, at each shape
+        out["simt"] = {}
+        for label, arch, B, reps in SIMT_SHAPES:
+            if arch == name:
+                batch = sizes["serve_bulk"][0] if B == RECSYS_SHAPES["serve_bulk"] else (
+                    p99 if B == RECSYS_SHAPES["serve_p99"] else recsys_batch(cfg, B, seed=seed))
+                views = encoder_qkv(params, cfg, served_seq(cfg, batch, device, torch), torch)
+                # the three copies K5's wrapper makes of the transposed views (.contiguous())
+                copy_ms = cuda_ms(lambda: [t.contiguous() for t in views], reps=reps)
+                case = (*(t.contiguous() for t in views), {})
+                out["simt"][label] = r = simt_case(f"{label}, {name} layer 0", case,
+                                                   kern["K5"], ref, torch, reps)
+                r["copy_ms"] = copy_ms
+                print(f"[8] K5 {label}: the wrapper's .contiguous() of the transposed q, k, v "
+                      f"{copy_ms:.4f} ms a call, beside the kernel's {r['ms']:.4f} ms",
+                      flush=True)
+                del views, case
+        out["k5_err"] = max(r["err"] for r in out["simt"].values())
     if b4r:
         with torch.inference_mode():
             seq = torch.as_tensor(p99["seq"]).to(device)
@@ -2059,6 +2168,32 @@ def recsys_phase(kern, ref, torch, device="cuda", seed=0):
     return results, launches, max(errs)
 
 
+def simt_line(serve, results, launches) -> dict:
+    """K5's f32 kernel's entry in the kernels line: launches on bst's bulk
+    route (the short path), by route and by path on phases 7 and 8, times
+    at (a), bst's bulk attention, with (b)–(d) beside them (``serve`` is
+    phase 7's result, or None where phase 7 did not run)."""
+    shapes = {label: results[arch]["simt"][label] for label, arch, _, _ in SIMT_SHAPES}
+    paths = dict(serve["simt"]["paths"]) if serve else {}
+    if serve:
+        shapes["(d) h2o-danube f32 prefill"] = serve["simt"]["(d)"]
+    for arch in ("bst", "bert4rec"):
+        paths.update(results[arch]["simt_paths"])
+    head = shapes["(a) bst serve_bulk"]
+    route = "recsys:bst:serve_bulk"
+    return {
+        "name": "flash_attention (f32)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:128",
+        "launches": launches[route]["K5"], "launches_on": route,
+        "launches_by_route": {r: sum(p.values()) for r, p in paths.items()},
+        "launches_by_path": paths,
+        "max_abs_err": max(r["err"] for r in shapes.values()),
+        **{key: val for key, val in simt_entry(head).items() if key != "max_abs_err"},
+        "shapes": {label: simt_entry(r) for label, r in shapes.items()},
+    }
+
+
 def k6_line(results, launches, err) -> dict:
     """K6's entry in the kernels line: launches summed over phase 8's routes,
     times at fm's tower shape, the other two shapes beside them."""
@@ -2082,6 +2217,84 @@ def k6_line(results, launches, err) -> dict:
                          if key in r}
                   for name, r in results.items()},
     }
+
+
+# -- --simt-only: K5's f32 kernel alone at the main path's shapes ----------------
+
+# (label, q shape, k/v shape, kwargs, reps): (a)-(c) as phase 8 serves them,
+# (d) as phase 7's f32 check prefills
+SIMT_ONLY = (("(a) bst serve_bulk", (262_144, 8, 21, 4), (262_144, 8, 21, 4), {}, 10),
+             ("(b) bst serve_p99", (512, 8, 21, 4), (512, 8, 21, 4), {}, 50),
+             ("(c) bert4rec chunk", (2048, 2, 200, 32), (2048, 2, 200, 32), {}, 20),
+             ("(d) h2o-danube f32 prefill", (2, 32, 4608, 80), (2, 8, 4608, 80),
+              dict(causal=True, window=4096), 3))
+
+
+def other_simt(tree, torch):
+    """The f32 kernel of another checkout ``tree`` (an earlier commit
+    unpacked by ``git archive``): its ``csrc/flash_attention.cu`` built with
+    this tree's nvcc flags into ``build/other_simt/`` and called through its
+    own C entry point, the one-path kernel's (no path argument). Returns
+    ``fn(q, k, v, **kw) -> out``."""
+    import ctypes
+    from repro_torch.kernels import backend
+    csrc = Path(tree).resolve() / "src" / "repro_torch" / "kernels" / "csrc"
+    out_dir = backend.BUILD_ROOT.parent / "other_simt"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libflash_attention.so"
+    subprocess.run([backend._nvcc(), *backend.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib_path),
+                    str(csrc / "flash_attention.cu")], check=True, capture_output=True,
+                   text=True, timeout=600)
+    launch = ctypes.CDLL(str(lib_path)).flash_attention_launch
+    launch.restype = ctypes.c_int
+    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+
+    def call(q, k, v, causal=False, window=None, kv_len=None):
+        B, Hq, Sq, D = q.shape
+        Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+        out = torch.empty(B, Hq, Sq, Dv, dtype=q.dtype, device=q.device)
+        kv_end = Skv if kv_len is None else max(0, min(kv_len, Skv))
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B * Hkv,
+                     Hq // Hkv * Sq, Sq, Skv, D, Dv, int(causal), window or 0, kv_end,
+                     backend.f32(float(D) ** -0.5), backend.stream(q))
+        require(err == 0, f"{tree}'s f32 K5: CUDA error {err}")
+        return out
+    return call
+
+
+def simt_phase(kern, ref, torch, other=None, device="cuda", seed=0) -> dict:
+    """K5's f32 kernel at the four ``SIMT_ONLY`` shapes on seeded inputs:
+    :func:`simt_case` (bitwise == the twin, the path, the times beside
+    SDPA, the twin and the bound); with ``other`` (a checkout's directory),
+    that tree's f32 kernel (:func:`other_simt`) equal to this one bit for
+    bit and timed in turns with it (other, this, this, other)."""
+    k5 = kern["K5"]
+    old = other_simt(other, torch) if other else None
+    g = torch.Generator(device).manual_seed(seed)
+    out = {}
+    for label, q_shape, kv_shape, kw, reps in SIMT_ONLY:
+        q = torch.randn(q_shape, generator=g, device=device)
+        k = torch.randn(kv_shape, generator=g, device=device)
+        v = torch.randn(kv_shape, generator=g, device=device)
+        r = simt_case(label, (q, k, v, kw), k5, ref, torch, reps, tag="s")
+        if old is not None:
+            require(same_bits(old(q, k, v, **kw), k5(q, k, v, **kw)),
+                    f"{label}: {other}'s f32 kernel != this tree's")
+            turns = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other"):
+                fn = old if who == "other" else k5
+                turns[who].append(cuda_ms(lambda: fn(q, k, v, **kw), reps=reps))
+            r["other_ms"] = float(np.mean(turns["other"]))
+            r["other_turns"] = turns
+            print(f"[s] {label}: {other}'s f32 kernel bitwise == this tree's; in turns "
+                  f"(other, this, this, other) {turns['other'][0]:.4f}, {turns['this'][0]:.4f}, "
+                  f"{turns['this'][1]:.4f}, {turns['other'][1]:.4f} ms: "
+                  f"{r['other_ms'] / float(np.mean(turns['this'])):.2f}x", flush=True)
+        out[label] = r
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 9: the structured tier and the write path against oracles ---------------
@@ -4398,6 +4611,12 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1, 2 and 14 only (a shake-out of the training path; prints no "
                          "ok line)")
+    ap.add_argument("--simt-only", action="store_true",
+                    help="phases 1, 2 and K5's f32 kernel alone at the main path's shapes on "
+                         "seeded data (prints no ok line)")
+    ap.add_argument("--other", metavar="DIR",
+                    help="with --simt-only: also build DIR's f32 K5 (a checkout of another "
+                         "commit) and time it in turns with this tree's")
     ap.add_argument("--seed", type=int, default=0,
                     help="the first numpy seed of phase 15's cell inputs (each leaf draws the "
                          "next)")
@@ -4454,6 +4673,17 @@ def main() -> int:
         print(smi, flush=True)
         print("chip_smoke: --lm-only, a partial run", flush=True)
         return 0
+    if args.simt_only:
+        t0 = time.perf_counter()
+        cases = simt_phase(kern, ref, torch, other=args.other)
+        print(f"[s] K5's f32 kernel checked and timed in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        print(json.dumps({"simt_only": {label: {**simt_entry(r), **{
+            key: r[key] for key in ("other_ms", "other_turns") if key in r}}
+            for label, r in cases.items()}}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --simt-only, a partial run", flush=True)
+        return 0
     if args.topk_only:
         t0 = time.perf_counter()
         cases = topk_phase(kern, ref, torch)
@@ -4486,7 +4716,8 @@ def main() -> int:
         return 0
     if args.recsys_only:
         results, rs_launches, err = recsys_phase(kern, ref, torch)
-        print(json.dumps({"kernels": [k6_line(results, rs_launches, err)]}), flush=True)
+        print(json.dumps({"kernels": [k6_line(results, rs_launches, err),
+                                      simt_line(None, results, rs_launches)]}), flush=True)
         print(smi, flush=True)
         print("chip_smoke: --recsys-only, a partial run", flush=True)
         return 0
@@ -4692,10 +4923,13 @@ def main() -> int:
     line["kernels"][-1]["moe"] = {name: moe_entry(r) for name, r in moe.items()}
     line["kernels"][0]["serve_launcher"] = serve_out
     line["kernels"].append(k6_line(results, rs_launches, k6_err))
+    line["kernels"].append(simt_line(serve, results, launches))
     names = {"bm25_block_impacts": "K3", "topk": "K2", "bm25_pruned_topk": "K1",
              "dot_topk_batch": "K4", "flash_attention": "K5", "embedding_bag": "K6"}
     for entry in line["kernels"]:
-        k = names[entry["name"]]
+        k = names.get(entry["name"])      # the f32 K5's count is K5's, with the bf16 ones
+        if k is None:
+            continue
         entry["launches_phase15"] = {route: c[k] for route, c in cell_launches.items() if c[k]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -64,7 +64,7 @@ SIGNATURES = {
         "dot_topk_tiles_launch": (_I, [_P, _P, _I, _LL, _I, _I, _I, _I, _P, _P, _P]),
     },
     "flash_attention": {
-        "flash_attention_launch": (_I, [_P] * 5 + [_I] * 9 + [_F, _P]),
+        "flash_attention_launch": (_I, [_P] * 5 + [_I] * 10 + [_F, _P]),
     },
     "flash_attention_bf16": {
         "flash_attention_tc_launch": (_I, [_P] * 5 + [_I] * 9 + [_F, _P]),

@@ -25,7 +25,13 @@ Three hand kernels; :func:`variant` picks one from the dtype and the
 folded rows G·Sq:
 
 * ``"simt"`` — f32, any shape: the CUDA cores, every sum in the twin's
-  order, so it equals :func:`ref.flash_attention_ref` bit for bit;
+  order, so it equals :func:`ref.flash_attention_ref` bit for bit. Two
+  paths, :func:`simt_path` from the shape: ``"short"`` (all keys in one
+  64-key tile, at most 256 folded rows, head dims at most 32: one thread a
+  row, many (batch, kv head)s a block — bst's encoder) and ``"tiled"``
+  (the rest: a 256-thread block a tile of rows, 64-key tiles by
+  ``cp.async`` — bert4rec's encoder, the LM's f32 check and decode);
+  ``launches_by_path`` counts them;
 * ``"tc"`` — bf16 with more than ``DECODE_ROWS`` folded rows (prefill):
   ``mma.sync`` on the tensor cores, K/V tiles by ``cp.async``;
 * ``"split"`` — bf16 with at most ``DECODE_ROWS`` folded rows (decode):
@@ -57,6 +63,10 @@ DECODE_ROWS = 16        # folded rows a split-KV block serves
 SPLIT_TILE = 128        # keys a split-KV block stages at a time
 SPLIT_BLOCKS = 264      # split-KV blocks that fill an H100 once: two on each of 132 SMs
 VARIANTS = ("tc", "split", "simt")
+SIMT_PATHS = ("short", "tiled")
+SHORT_KEYS = ref.FLASH_BK   # the short path's keys: one tile, so no online rescale
+SHORT_ROWS = 256        # folded rows a short block's threads hold, one a thread
+SHORT_HEAD_DIM = 32     # D and Dv a short thread keeps in registers
 # |lse - twin| <= LSE_TOL * max(1, |twin|) for the bf16 variants: their l is an
 # f32 sum of ex2.approx terms (2^-22 each) over scores the tensor cores sum in
 # f32, so lse is an f32-grade quantity (nothing in it is rounded to bf16);
@@ -71,6 +81,16 @@ def variant(dtype: torch.dtype, rows: int) -> str:
     if dtype == torch.bfloat16:
         return "split" if rows <= DECODE_ROWS else "tc"
     raise ValueError(f"flash_attention takes f32 or bf16, got {dtype}")
+
+
+def simt_path(rows: int, Skv: int, D: int, Dv: int) -> str:
+    """The f32 kernel's path from the shape: ``"short"`` when every key
+    lies in one tile, the folded rows G·Sq fit one thread each in a block
+    and a q row and an output row fit a thread's registers; else
+    ``"tiled"``."""
+    if Skv <= SHORT_KEYS and rows <= SHORT_ROWS and max(D, Dv) <= SHORT_HEAD_DIM:
+        return "short"
+    return "tiled"
 
 
 def split_plan(bh: int, Sq: int, Skv: int, *, window: "int | None",
@@ -127,11 +147,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_end = Skv if kv_len is None else max(0, min(kv_len, Skv))
     with torch.cuda.device(q.device):
         if kind == "simt":
+            path = simt_path(rows, Skv, D, Dv)
             lib = backend.library("flash_attention")
             err = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, BH, rows, Sq,
-                Skv, D, Dv, int(causal), window or 0, kv_end, backend.f32(scale),
-                backend.stream(q))
+                Skv, D, Dv, int(causal), window or 0, kv_end, SIMT_PATHS.index(path),
+                backend.f32(scale), backend.stream(q))
             name = "flash_attention_launch"
         elif kind == "tc":
             lib = backend.library("flash_attention_bf16")
@@ -156,6 +177,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backend.check(lib, err, name)
     flash_attention.launches += 1
     flash_attention.launches_by[kind] += 1
+    if kind == "simt":
+        flash_attention.launches_by_path[path] += 1
     return (out, lse) if return_lse else out
 
 
@@ -190,3 +213,4 @@ def _meta(q, k, v, *, causal, window, kv_len, return_lse=False):
 
 flash_attention.launches = 0
 flash_attention.launches_by = dict.fromkeys(VARIANTS, 0)
+flash_attention.launches_by_path = dict.fromkeys(SIMT_PATHS, 0)

@@ -18,8 +18,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_attention as j_chunked
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (DECODE_ROWS, flash_attention, split_plan,
-                                                 variant)
+from repro_torch.kernels.flash_attention import (DECODE_ROWS, SHORT_HEAD_DIM, SHORT_KEYS,
+                                                 SHORT_ROWS, flash_attention, simt_path,
+                                                 split_plan, variant)
 from repro_torch.models.attention import attention, chunked_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -50,7 +51,9 @@ def _both(fn_t, fn_j, arrays, **kw):
 
 
 # test_kernels.py's flash cases (MHA, GQA, MQA, decode), then the model's
-# head dim 80 (h2o-danube) in prefill and decode
+# head dim 80 (h2o-danube) in prefill and decode, then the recsys encoders'
+# shapes: bst's 8 heads of 4 over [history; target] (21 tokens, K5's short
+# path) and bert4rec's 2 heads of 32 over 200 items (its tiled path)
 CASES = [
     (1, 2, 2, 128, 128, 32),
     (2, 4, 2, 128, 128, 64),
@@ -58,6 +61,8 @@ CASES = [
     (2, 4, 4, 1, 384, 64),
     (2, 8, 2, 96, 96, 80),
     (2, 8, 2, 1, 200, 80),
+    (3, 8, 8, 21, 21, 4),
+    (2, 2, 2, 200, 200, 32),
 ]
 
 
@@ -194,6 +199,34 @@ def test_variant_dispatch():
     assert variant(torch.bfloat16, 4 * 6144) == "tc"
     with pytest.raises(ValueError, match="f32 or bf16"):
         variant(torch.float16, 4)
+
+
+def test_simt_path():
+    """The f32 kernel's path is a function of the shape alone: bst's bulk
+    and p99 encoders (21 rows, 21 keys, head dim 4) take the short path;
+    bert4rec's chunk (200 rows and keys, 32) and the LM's f32 prefill (4 ·
+    4,608 rows, 80) the tiled one; and at the edges, one key, one row or
+    one head dim too many sends a shape to the tiled path."""
+    assert simt_path(21, 21, 4, 4) == "short"                 # (a) and (b): bst
+    assert simt_path(200, 200, 32, 32) == "tiled"             # (c): bert4rec
+    assert simt_path(4 * 4608, 4608, 80, 80) == "tiled"       # (d): the LM's f32 check
+    assert simt_path(4, 4616, 80, 80) == "tiled"              # its decode
+    assert (SHORT_KEYS, SHORT_ROWS, SHORT_HEAD_DIM) == (64, 256, 32)
+    assert simt_path(21, 63, 4, 4) == simt_path(21, 64, 4, 4) == "short"
+    assert simt_path(21, 65, 4, 4) == "tiled"
+    assert simt_path(256, 64, 32, 32) == "short"
+    assert simt_path(257, 64, 32, 32) == "tiled"
+    assert simt_path(1, 1, 32, 8) == simt_path(1, 1, 8, 32) == "short"
+    assert simt_path(1, 1, 33, 8) == simt_path(1, 1, 8, 33) == "tiled"
+
+
+def test_cpu_f32_call_counts_no_path():
+    """An f32 call on CPU tensors takes the twin: neither the variant nor the
+    path counters move."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, 2, 8, 8, 21, 21, 4))
+    before, by = dict(flash_attention.launches_by), dict(flash_attention.launches_by_path)
+    assert torch.equal(flash_attention(q, k, v), tref.flash_attention_ref(q, k, v))
+    assert flash_attention.launches_by == before and flash_attention.launches_by_path == by
 
 
 def test_split_plan():

@@ -16,7 +16,7 @@ from repro_torch.kernels import bm25_pruned
 from repro_torch.kernels.bm25_pruned import bm25_pruned_topk, range_docs
 from repro_torch.kernels.dot_topk import dot_topk_batch
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.flash_attention import flash_attention, variant
+from repro_torch.kernels.flash_attention import flash_attention, simt_path, variant
 from repro_torch.kernels.topk import topk
 
 
@@ -410,7 +410,13 @@ def test_dot_topk_kernel_equals_twin(cuda, N, Q, D, k):
 # 256); head dims 48, 80 (h2o-danube) and 256, Dv != D on both sides of 128,
 # the window, kv_len on a ring and nothing visible; the LM's exact prefill
 # and decode shapes; the recsys encoders' bidirectional shapes; then
-# B·Hkv past 65,535, the old limit of grid.y.
+# B·Hkv past 65,535, the old limit of grid.y. Then the f32 kernel's two
+# paths at their edges (simt_path): 63, 64 and 65 keys; 13 (batch · kv
+# head)s of bst's 21 rows, which leave the last block of 12 a group short;
+# GQA, causal, the window, kv_len and kv_len 0 on the short path (kv_len 0
+# on the tiled one too); D != Dv and head dims that are no multiple of 4 on
+# both; 256 and 257 rows; 160 columns (the tiled path's one row a thread);
+# and a grid of 2^21 + 5 (batch · kv head)s at bst's rows and keys.
 K5_CASES = [
     (1, 2, 2, 128, 128, 32, 32, dict(causal=True), torch.float32),
     (2, 4, 2, 130, 130, 80, 80, dict(causal=True, window=40), torch.float32),
@@ -436,6 +442,26 @@ K5_CASES = [
     (70_000, 1, 1, 4, 4, 4, 4, dict(causal=True), torch.float32),
     (35_000, 2, 2, 4, 4, 8, 8, dict(causal=True), torch.bfloat16),
     (35_000, 4, 2, 16, 16, 8, 8, dict(causal=True), torch.bfloat16),
+    (3, 2, 2, 63, 63, 32, 32, {}, torch.float32),
+    (3, 2, 2, 64, 64, 32, 32, {}, torch.float32),
+    (3, 2, 2, 65, 65, 32, 32, {}, torch.float32),
+    (3, 2, 1, 30, 65, 4, 4, dict(causal=True), torch.float32),
+    (13, 8, 8, 21, 21, 4, 4, {}, torch.float32),
+    (13, 1, 1, 21, 21, 4, 4, {}, torch.float32),
+    (5, 8, 2, 9, 40, 16, 16, dict(causal=True, window=12, kv_len=37), torch.float32),
+    (5, 8, 2, 9, 40, 16, 16, dict(kv_len=25), torch.float32),
+    (5, 8, 2, 9, 40, 16, 16, dict(kv_len=0), torch.float32),
+    (2, 6, 3, 21, 48, 8, 20, dict(window=30), torch.float32),
+    (2, 4, 4, 17, 17, 6, 10, dict(causal=True), torch.float32),
+    (2, 4, 2, 100, 150, 20, 36, dict(causal=True, window=70), torch.float32),
+    (2, 4, 2, 70, 130, 6, 10, dict(kv_len=120), torch.float32),
+    (1, 2, 1, 4, 100, 16, 16, dict(kv_len=0), torch.float32),
+    (1, 8, 1, 32, 64, 32, 32, dict(causal=True), torch.float32),
+    (1, 8, 1, 32, 64, 33, 32, dict(causal=True), torch.float32),
+    (2, 16, 4, 64, 64, 16, 16, {}, torch.float32),
+    (1, 257, 1, 1, 64, 16, 16, {}, torch.float32),
+    (1, 4, 2, 40, 300, 64, 160, dict(window=100), torch.float32),
+    (2 ** 21 + 5, 1, 1, 21, 21, 4, 4, {}, torch.float32),
 ]
 
 
@@ -480,6 +506,15 @@ def assert_k5_tolerance(got, want, sdpa):
                           float(row_tol[tuple(bad[0])]))
 
 
+def assert_simt_path(before, dtype, rows, Skv, D, Dv):
+    """One call since ``before`` (the path counters then): an f32 call
+    launched the path :func:`simt_path` names once, a bf16 call none."""
+    want = dict(before)
+    if dtype == torch.float32:
+        want[simt_path(rows, Skv, D, Dv)] += 1
+    assert flash_attention.launches_by_path == want
+
+
 ORACLE_SCORES = 1 << 22         # f32 scores per (batch, head) the dense oracle may hold
 
 
@@ -495,10 +530,12 @@ def test_flash_attention_kernel_equals_twin(cuda, B, Hq, Hkv, Sq, Skv, D, Dv, kw
     k = torch.randn(B, Hkv, Skv, D, generator=g, device=cuda).to(dtype)
     v = torch.randn(B, Hkv, Skv, Dv, generator=g, device=cuda).to(dtype)
     kind = variant(dtype, Hq // Hkv * Sq)
+    paths = dict(flash_attention.launches_by_path)
     before, by = flash_attention.launches, flash_attention.launches_by[kind]
     got = flash_attention(q, k, v, **kw)
     assert flash_attention.launches == before + 1
     assert flash_attention.launches_by[kind] == by + 1
+    assert_simt_path(paths, dtype, Hq // Hkv * Sq, Skv, D, Dv)
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.shape == (B, Hq, Sq, Dv)
@@ -529,10 +566,12 @@ def test_flash_attention_lse_equals_twin(cuda, B, Hq, Hkv, Sq, Skv, D, Dv, kw, d
     v = torch.randn(B, Hkv, Skv, Dv, generator=g, device=cuda).to(dtype)
     kind = variant(dtype, Hq // Hkv * Sq)
     plain = flash_attention(q, k, v, **kw)
+    paths = dict(flash_attention.launches_by_path)
     before, by = flash_attention.launches, flash_attention.launches_by[kind]
     out, lse = flash_attention(q, k, v, return_lse=True, **kw)
     assert flash_attention.launches == before + 1
     assert flash_attention.launches_by[kind] == by + 1
+    assert_simt_path(paths, dtype, Hq // Hkv * Sq, Skv, D, Dv)
     _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     assert _same_bits(out, plain) and lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
