@@ -9,7 +9,7 @@ against its plain PyTorch twin.
     python3 chip_smoke.py                 # 50,000-doc partition (the default)
     python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
     python3 chip_smoke.py --lm-only       # phases 1, 2 and 7 (no ok line)
-    python3 chip_smoke.py --simt-only [--other DIR]  # phases 1, 2, then K5's f32 kernel (no ok line)
+    python3 chip_smoke.py --simt-only     # phases 1, 2, then K5's f32 kernel (no ok line)
     python3 chip_smoke.py --recsys-only   # phases 1, 2 and 8 (no ok line)
     python3 chip_smoke.py --topk-only     # phases 1, 2, then K2 and K4 alone (no ok line)
     python3 chip_smoke.py --k1-k6-only    # phases 1, 2, then K1 and K6 alone (no ok line)
@@ -286,9 +286,8 @@ twin and timed in turns with it (K6 also beside ``F.embedding_bag``), K1's
 device time split by kernel.
 
 ``--simt-only`` runs phases 1-2 and then K5's f32 kernel alone at (a)-(d)
-on seeded inputs, as phases 7 and 8 check and time it; with ``--other DIR``
-(an earlier commit unpacked by ``git archive``) that tree's f32 kernel is
-built too, held bitwise to this one and timed in turns with it.
+(``simt_shapes``, the table phases 7 and 8 use) on seeded inputs, as those
+phases check and time it.
 
 ``--k3-only`` runs phases 1-2 and then K3's two entry points and the eager
 chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
@@ -1672,9 +1671,11 @@ def lm_check(arch, kern, ref, torch, device="cuda", seed=1, check=LM_CHECK):
         q, k, v = (t.contiguous() for t in _qkv(lp["attn"], rms_norm(
             model.embed[toks[:, :S].long()], lp["ln1"]), cfg, positions))
     del model
-    case = (q, k, v, dict(causal=True, window=cfg.window))
-    simt = simt_case("(d) f32 prefill", case, kern["K5"], ref, torch, reps=3, tag="7")
-    return launches, paths, simt
+    label, _, q_shape, kv_shape, kw, reps = simt_shapes()[3]
+    require(tuple(q.shape) == q_shape and tuple(k.shape) == kv_shape == tuple(v.shape),
+            f"K5 {label}: q {tuple(q.shape)}, k {tuple(k.shape)}; table {q_shape}, {kv_shape}")
+    simt = simt_case(label, (q, k, v, kw), kern["K5"], ref, torch, reps=reps, tag="7")
+    return launches, paths, {label: simt}
 
 
 def lm_phase(kern, ref, torch, arch_name=LM_ARCH, serve=LM_SERVE, check=LM_CHECK,
@@ -1712,7 +1713,7 @@ def lm_phase(kern, ref, torch, arch_name=LM_ARCH, serve=LM_SERVE, check=LM_CHECK
     torch.cuda.empty_cache()
     launches["lm:f32-check"], paths, simt = lm_check(arch, kern, ref, torch, device,
                                                       seed=seed + 1, check=check)
-    serve_r["simt"] = {"(d)": simt, "paths": {"lm:f32-check": paths}}
+    serve_r["simt"] = {"shapes": simt, "paths": {"lm:f32-check": paths}}
     torch.cuda.empty_cache()
     print(f"[7] phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return serve_r, checks, launches
@@ -1920,11 +1921,29 @@ def retrieval_agree(u, cand, kern_route, plain_route) -> int:
     return int(differ.size)
 
 
-# K5's f32 kernel timed at the encoders' served shapes: (label, architecture,
-# rows, reps); bert4rec's bulk call is 128 chunks of 2,048 sequences, each
-# chunk two K5 launches at (c)
-SIMT_SHAPES = (("(a) bst serve_bulk", "bst", 262_144, 10), ("(b) bst serve_p99", "bst", 512, 50),
-               ("(c) bert4rec chunk", "bert4rec", 2048, 20))
+def simt_shapes() -> tuple:
+    """The shapes K5's f32 kernel is checked and timed at, one table for
+    phases 7 and 8 and ``--simt-only``: (label, architecture, q shape, k/v
+    shape, kwargs, reps). (a)-(c) the encoders' layer 0 as phase 8 serves
+    them (bst attends [history; target]; bert4rec's bulk call is chunks of
+    ``BERT4REC_CHUNK`` sequences, two launches at (c) each), (d) the LM's
+    f32 prefill as phase 7's check runs it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys import BERT4REC_CHUNK
+
+    def encoder(name, rows):
+        cfg = get_arch(name).full_config()
+        shape = (rows, cfg.n_heads, cfg.seq_len + (cfg.kind == "bst"),
+                 cfg.embed_dim // cfg.n_heads)
+        return name, shape, shape, {}
+
+    lm = get_arch(LM_ARCH).full_config()
+    B, S = LM_CHECK["batch"], LM_CHECK["prompt"]
+    return (("(a) bst serve_bulk", *encoder("bst", RECSYS_SHAPES["serve_bulk"]), 10),
+            ("(b) bst serve_p99", *encoder("bst", RECSYS_SHAPES["serve_p99"]), 50),
+            ("(c) bert4rec chunk", *encoder("bert4rec", BERT4REC_CHUNK), 20),
+            ("(d) h2o-danube f32 prefill", LM_ARCH, (B, lm.n_heads, S, lm.dh),
+             (B, lm.n_kv_heads, S, lm.dh), dict(causal=True, window=lm.window), 3))
 
 
 def served_seq(cfg, batch, device, torch):
@@ -2077,14 +2096,17 @@ def recsys_arch(name, kern, ref, torch, device, seed):
               f"{tuple(seq.shape)}", flush=True)
         # K5's f32 kernel on layer 0's q/k/v of the served sequences, at each shape
         out["simt"] = {}
-        for label, arch, B, reps in SIMT_SHAPES:
+        for label, arch, q_shape, _, kw, reps in simt_shapes():
             if arch == name:
+                B = q_shape[0]
                 batch = sizes["serve_bulk"][0] if B == RECSYS_SHAPES["serve_bulk"] else (
                     p99 if B == RECSYS_SHAPES["serve_p99"] else recsys_batch(cfg, B, seed=seed))
                 views = encoder_qkv(params, cfg, served_seq(cfg, batch, device, torch), torch)
+                require(all(tuple(t.shape) == q_shape for t in views),
+                        f"K5 {label}: {name}'s q/k/v {tuple(views[0].shape)}, table {q_shape}")
                 # the three copies K5's wrapper makes of the transposed views (.contiguous())
                 copy_ms = cuda_ms(lambda: [t.contiguous() for t in views], reps=reps)
-                case = (*(t.contiguous() for t in views), {})
+                case = (*(t.contiguous() for t in views), kw)
                 out["simt"][label] = r = simt_case(f"{label}, {name} layer 0", case,
                                                    kern["K5"], ref, torch, reps)
                 r["copy_ms"] = copy_ms
@@ -2173,10 +2195,11 @@ def simt_line(serve, results, launches) -> dict:
     route (the short path), by route and by path on phases 7 and 8, times
     at (a), bst's bulk attention, with (b)–(d) beside them (``serve`` is
     phase 7's result, or None where phase 7 did not run)."""
-    shapes = {label: results[arch]["simt"][label] for label, arch, _, _ in SIMT_SHAPES}
+    shapes = {label: results[arch]["simt"][label] for label, arch, *_ in simt_shapes()
+              if arch in results}
     paths = dict(serve["simt"]["paths"]) if serve else {}
     if serve:
-        shapes["(d) h2o-danube f32 prefill"] = serve["simt"]["(d)"]
+        shapes.update(serve["simt"]["shapes"])
     for arch in ("bst", "bert4rec"):
         paths.update(results[arch]["simt_paths"])
     head = shapes["(a) bst serve_bulk"]
@@ -2221,77 +2244,17 @@ def k6_line(results, launches, err) -> dict:
 
 # -- --simt-only: K5's f32 kernel alone at the main path's shapes ----------------
 
-# (label, q shape, k/v shape, kwargs, reps): (a)-(c) as phase 8 serves them,
-# (d) as phase 7's f32 check prefills
-SIMT_ONLY = (("(a) bst serve_bulk", (262_144, 8, 21, 4), (262_144, 8, 21, 4), {}, 10),
-             ("(b) bst serve_p99", (512, 8, 21, 4), (512, 8, 21, 4), {}, 50),
-             ("(c) bert4rec chunk", (2048, 2, 200, 32), (2048, 2, 200, 32), {}, 20),
-             ("(d) h2o-danube f32 prefill", (2, 32, 4608, 80), (2, 8, 4608, 80),
-              dict(causal=True, window=4096), 3))
-
-
-def other_simt(tree, torch):
-    """The f32 kernel of another checkout ``tree`` (an earlier commit
-    unpacked by ``git archive``): its ``csrc/flash_attention.cu`` built with
-    this tree's nvcc flags into ``build/other_simt/`` and called through its
-    own C entry point, the one-path kernel's (no path argument). Returns
-    ``fn(q, k, v, **kw) -> out``."""
-    import ctypes
-    from repro_torch.kernels import backend
-    csrc = Path(tree).resolve() / "src" / "repro_torch" / "kernels" / "csrc"
-    out_dir = backend.BUILD_ROOT.parent / "other_simt"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "libflash_attention.so"
-    subprocess.run([backend._nvcc(), *backend.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib_path),
-                    str(csrc / "flash_attention.cu")], check=True, capture_output=True,
-                   text=True, timeout=600)
-    launch = ctypes.CDLL(str(lib_path)).flash_attention_launch
-    launch.restype = ctypes.c_int
-    launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
-
-    def call(q, k, v, causal=False, window=None, kv_len=None):
-        B, Hq, Sq, D = q.shape
-        Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-        out = torch.empty(B, Hq, Sq, Dv, dtype=q.dtype, device=q.device)
-        kv_end = Skv if kv_len is None else max(0, min(kv_len, Skv))
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B * Hkv,
-                     Hq // Hkv * Sq, Sq, Skv, D, Dv, int(causal), window or 0, kv_end,
-                     backend.f32(float(D) ** -0.5), backend.stream(q))
-        require(err == 0, f"{tree}'s f32 K5: CUDA error {err}")
-        return out
-    return call
-
-
-def simt_phase(kern, ref, torch, other=None, device="cuda", seed=0) -> dict:
-    """K5's f32 kernel at the four ``SIMT_ONLY`` shapes on seeded inputs:
+def simt_phase(kern, ref, torch, device="cuda", seed=0) -> dict:
+    """K5's f32 kernel at the :func:`simt_shapes` on seeded inputs:
     :func:`simt_case` (bitwise == the twin, the path, the times beside
-    SDPA, the twin and the bound); with ``other`` (a checkout's directory),
-    that tree's f32 kernel (:func:`other_simt`) equal to this one bit for
-    bit and timed in turns with it (other, this, this, other)."""
-    k5 = kern["K5"]
-    old = other_simt(other, torch) if other else None
+    SDPA, the twin and the bound)."""
     g = torch.Generator(device).manual_seed(seed)
     out = {}
-    for label, q_shape, kv_shape, kw, reps in SIMT_ONLY:
+    for label, _, q_shape, kv_shape, kw, reps in simt_shapes():
         q = torch.randn(q_shape, generator=g, device=device)
         k = torch.randn(kv_shape, generator=g, device=device)
         v = torch.randn(kv_shape, generator=g, device=device)
-        r = simt_case(label, (q, k, v, kw), k5, ref, torch, reps, tag="s")
-        if old is not None:
-            require(same_bits(old(q, k, v, **kw), k5(q, k, v, **kw)),
-                    f"{label}: {other}'s f32 kernel != this tree's")
-            turns = {"other": [], "this": []}
-            for who in ("other", "this", "this", "other"):
-                fn = old if who == "other" else k5
-                turns[who].append(cuda_ms(lambda: fn(q, k, v, **kw), reps=reps))
-            r["other_ms"] = float(np.mean(turns["other"]))
-            r["other_turns"] = turns
-            print(f"[s] {label}: {other}'s f32 kernel bitwise == this tree's; in turns "
-                  f"(other, this, this, other) {turns['other'][0]:.4f}, {turns['this'][0]:.4f}, "
-                  f"{turns['this'][1]:.4f}, {turns['other'][1]:.4f} ms: "
-                  f"{r['other_ms'] / float(np.mean(turns['this'])):.2f}x", flush=True)
-        out[label] = r
+        out[label] = simt_case(label, (q, k, v, kw), kern["K5"], ref, torch, reps, tag="s")
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -4614,9 +4577,6 @@ def main() -> int:
     ap.add_argument("--simt-only", action="store_true",
                     help="phases 1, 2 and K5's f32 kernel alone at the main path's shapes on "
                          "seeded data (prints no ok line)")
-    ap.add_argument("--other", metavar="DIR",
-                    help="with --simt-only: also build DIR's f32 K5 (a checkout of another "
-                         "commit) and time it in turns with this tree's")
     ap.add_argument("--seed", type=int, default=0,
                     help="the first numpy seed of phase 15's cell inputs (each leaf draws the "
                          "next)")
@@ -4675,12 +4635,11 @@ def main() -> int:
         return 0
     if args.simt_only:
         t0 = time.perf_counter()
-        cases = simt_phase(kern, ref, torch, other=args.other)
+        cases = simt_phase(kern, ref, torch)
         print(f"[s] K5's f32 kernel checked and timed in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        print(json.dumps({"simt_only": {label: {**simt_entry(r), **{
-            key: r[key] for key in ("other_ms", "other_turns") if key in r}}
-            for label, r in cases.items()}}), flush=True)
+        print(json.dumps({"simt_only": {label: simt_entry(r) for label, r in cases.items()}}),
+              flush=True)
         print(smi, flush=True)
         print("chip_smoke: --simt-only, a partial run", flush=True)
         return 0

@@ -83,6 +83,7 @@ namespace {
 constexpr int BK = 64;                 // keys a tile: the twin's FLASH_BK
 constexpr int THREADS = 256;
 constexpr int SHORT_DMAX = 32;         // D and Dv on the short path
+constexpr int MAX_D = 256;             // D and Dv on the tiled path
 constexpr int SHORT_BUF = 24 * 1024;   // bytes of Q, K and V a short chunk stages (one
                                        // group, up to 48 KB, where a group needs more)
 constexpr int SMEM_MAX = 232448;       // an H100 block's shared memory
@@ -611,8 +612,9 @@ REPRO_EXPORT int flash_attention_launch(const void* q_, const void* k_, const vo
                                         int kv_seq, int D, int Dv, int causal, int window,
                                         int kv_len, int path, float scale, void* stream) {
   if (bh <= 0 || rows <= 0) return 0;
-  if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || kv_seq < 1 || q_seq < 1)
-    return (int)cudaErrorInvalidValue;
+  // kv_seq 0 is no error: either path then sees no key, and every row is 0
+  // with lse -inf, as the twin's
+  if (D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_D || kv_seq < 0) return (int)cudaErrorInvalidValue;
   const float *q = (const float*)q_, *k = (const float*)k_, *v = (const float*)v_;
   float *o = (float*)o_, *lse = (float*)lse_;
   cudaStream_t s = (cudaStream_t)stream;

@@ -9,6 +9,8 @@ dense softmaxes in f32 that round their sums in other orders (the
 reference's own kernel tests hold Pallas to the oracle at 2e-3).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +19,11 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_attention as j_chunked
+from repro_torch.kernels import backend
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (DECODE_ROWS, SHORT_HEAD_DIM, SHORT_KEYS,
-                                                 SHORT_ROWS, flash_attention, simt_path,
-                                                 split_plan, variant)
+from repro_torch.kernels.flash_attention import (DECODE_ROWS, MAX_HEAD_DIM, SHORT_HEAD_DIM,
+                                                 SHORT_KEYS, SHORT_ROWS, flash_attention,
+                                                 simt_path, split_plan, variant)
 from repro_torch.models.attention import attention, chunked_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -218,6 +221,31 @@ def test_simt_path():
     assert simt_path(257, 64, 32, 32) == "tiled"
     assert simt_path(1, 1, 32, 8) == simt_path(1, 1, 8, 32) == "short"
     assert simt_path(1, 1, 33, 8) == simt_path(1, 1, 8, 33) == "tiled"
+
+
+def test_simt_limits_match_kernel_source():
+    """The limits :func:`simt_path` picks the path by are the ones the C
+    entry point of ``csrc/flash_attention.cu`` checks a path against: one
+    key tile (``BK``), a thread a row (``THREADS``), the short path's head
+    width (``SHORT_DMAX``) and the tiled path's (``MAX_D``)."""
+    src = (backend.CSRC / "flash_attention.cu").read_text()
+    c = {name: int(n) for name, n in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (c["BK"], c["THREADS"], c["SHORT_DMAX"], c["MAX_D"]) == (
+        SHORT_KEYS, SHORT_ROWS, SHORT_HEAD_DIM, MAX_HEAD_DIM)
+    assert "kv_seq > BK || rows > THREADS || D > SHORT_DMAX || Dv > SHORT_DMAX" in src
+
+
+@pytest.mark.parametrize("Hq,Hkv,Sq,D,Dv,path", [(4, 2, 5, 16, 16, "short"),
+                                                 (4, 1, 300, 64, 48, "tiled")])
+def test_empty_key_axis(Hq, Hkv, Sq, D, Dv, path):
+    """Skv = 0 is a shape like any other: the path is chosen as for one key
+    and every row is 0 with lse −inf, as the twin gives."""
+    assert simt_path(Hq // Hkv * Sq, 0, D, Dv) == path
+    q = torch.from_numpy(_qkv(5, 2, Hq, Hkv, Sq, 0, D, Dv)[0])
+    k, v = torch.zeros(2, Hkv, 0, D), torch.zeros(2, Hkv, 0, Dv)
+    out, lse = flash_attention(q, k, v, causal=path == "tiled", return_lse=True)
+    assert out.shape == (2, Hq, Sq, Dv) and not out.any()
+    assert lse.shape == (2, Hq, Sq) and bool((lse == float("-inf")).all())
 
 
 def test_cpu_f32_call_counts_no_path():

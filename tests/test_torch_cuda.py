@@ -462,6 +462,8 @@ K5_CASES = [
     (1, 257, 1, 1, 64, 16, 16, {}, torch.float32),
     (1, 4, 2, 40, 300, 64, 160, dict(window=100), torch.float32),
     (2 ** 21 + 5, 1, 1, 21, 21, 4, 4, {}, torch.float32),
+    (2, 4, 2, 5, 0, 16, 16, {}, torch.float32),                  # no keys: 0, lse -inf
+    (1, 4, 1, 300, 0, 64, 48, dict(causal=True), torch.float32),
 ]
 
 
@@ -543,7 +545,7 @@ def test_flash_attention_kernel_equals_twin(cuda, B, Hq, Hkv, Sq, Skv, D, Dv, kw
         assert _same_bits(got, want)
     else:
         assert_k5_tolerance(got, want, _sdpa(q, k, v, **kw))
-    rows = max(1, min(Sq, ORACLE_SCORES // Skv))
+    rows = max(1, min(Sq, ORACLE_SCORES // max(Skv, 1)))
     spans = [(slice(Sq - rows, Sq), slice(None))]
     if rows < Sq and Sq == Skv and kw.get("causal") and "kv_len" not in kw:
         spans.append((slice(0, rows), slice(0, rows)))
