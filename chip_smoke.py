@@ -2,9 +2,9 @@
 """Chip smoke of the PyTorch + CUDA port: drive the single-node BM25 query
 path, the partitioned fleet, the structured tier, the mesh path, the serve
 launcher, the LM serving paths (dense, MoE, MLA), recsys serving, the
-training path and the cells (the dry run, the cells that fit, sharded
-training's launcher) on one NVIDIA GPU and hold every hand-written kernel
-against its plain PyTorch twin.
+training path, the cells (the dry run, the cells that fit, sharded
+training's launcher) and the four examples on one NVIDIA GPU and hold every
+hand-written kernel against its plain PyTorch twin.
 
     python3 chip_smoke.py                 # 50,000-doc partition (the default)
     python3 chip_smoke.py --docs 1000000  # the 1M-doc partition, for comparison
@@ -20,6 +20,7 @@ against its plain PyTorch twin.
     python3 chip_smoke.py --moe-only      # phases 1, 2, 12 and 13 (no ok line)
     python3 chip_smoke.py --train-only    # phases 1, 2 and 14 (no ok line)
     python3 chip_smoke.py --cells-only    # phases 1, 2 and 15 (no ok line)
+    python3 chip_smoke.py --examples-only # phases 1, 2 and 16 (no ok line)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card: name, power limit, CUDA version;
@@ -270,6 +271,26 @@ Phases (each raises on failure; the script then exits non-zero):
      it, K5 with its lse against the twin at the decode's shapes; h2o's
      ``decode_32k`` also over the (1, 2) rank mesh, within the bound of
      the stacked (1, 2) run.
+ 16. the examples on the card, as a user runs them: ``python -m
+     repro_torch.examples.<name>`` for each of ``EXAMPLES`` (quickstart,
+     partitioned_search and train_lm at the reference's defaults,
+     serve_msmarco at ``--docs 50000``, its docstring's size, 400 queries at
+     25 QPS), in this process through ``runpy`` (the kernels built in phase
+     2 and their counters serve it), each in a fresh temporary directory
+     that ``tempfile`` hands out while it runs (train_lm's launcher
+     checkpoints there and would resume from an earlier run's). The launch
+     counters are set to 0 before each example and checked after it: K2 in
+     partitioned_search's mesh half, a local top-k a chunk of
+     ``partitions_per_call`` partitions and one merge; no other kernel in any
+     example. Checks: quickstart's first answer cold and the other four warm,
+     each top 3 the host ``OracleSearcher``'s (up to order within 1e-6);
+     partitioned_search with no ``!=``, its batch in 4 invocations, 5 backup
+     legs, 5 mesh answers == the oracle; serve_msmarco's replay all ok, the
+     first query on v2 ok, the fungibility line; train_lm one restart, 17
+     steps lost (its CPU run's count) and the last 10 steps' mean loss below
+     the first 10's. Prints each example's output, wall, launches and peak
+     memory, serve_msmarco's scorecard and train_lm's logged steps, and an
+     ``{"examples": ...}`` JSON line.
 
 ``--topk-only`` runs phases 1-2 and then K2 and K4 alone at the main path's
 shapes on data made from a seed (bert4rec-like logits with a popularity
@@ -299,7 +320,8 @@ chain at Q 1 and 64 on the same seeded blocks with a seeded 1M-doc
 
 ``--serve-only`` runs phases 1-2 and then phase 11; ``--moe-only`` phases
 1-2 and then phases 12 and 13; ``--train-only`` phases 1-2 and then phase 14;
-``--cells-only`` phases 1-2 and then phase 15.
+``--cells-only`` phases 1-2 and then phase 15; ``--examples-only`` phases 1-2
+and then phase 16.
 
 Prints the kernels JSON line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX
@@ -316,6 +338,7 @@ import functools
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -4540,6 +4563,185 @@ def cells_phase(kern, torch, device="cuda", seed=0) -> tuple[dict, dict]:
                 seconds=seconds), launches
 
 
+# -- phase 16: the examples on the card -------------------------------------------------
+
+EXAMPLES = {                   # python -m repro_torch.examples.<name> <argv>, on the card
+    "quickstart": [],
+    "partitioned_search": [],
+    "serve_msmarco": ["--docs", "50000", "--queries", "400", "--qps", "25.0"],
+    "train_lm": [],
+}
+TRAIN_LM_STEPS_LOST = 17       # `python -m repro_torch.examples.train_lm --device cpu` prints
+                               # it: the failure at step 18 restores the checkpoint of step 0
+NEAR_TIE = 1e-6                # oracle scores this close (relative) may rank either way
+
+
+def run_example(name: str, kern, torch) -> tuple[list, dict, float]:
+    """``python -m repro_torch.examples.<name>`` with ``EXAMPLES[name]`` in
+    this process (``runpy``, as ``__main__``: the kernels built in phase 2
+    and their counters serve it), in a temporary directory of its own that
+    ``tempfile`` hands out while it runs. Its output is echoed; any exception
+    propagates. Returns its lines, peak memory and wall."""
+    import io
+    import runpy
+    import tempfile
+    module = f"repro_torch.examples.{name}"
+    buf = io.StringIO()
+    saved = sys.argv, tempfile.tempdir
+    reset(kern)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
+            sys.argv, tempfile.tempdir = [module, *EXAMPLES[name]], tmp
+            try:
+                with contextlib.redirect_stdout(buf):
+                    runpy.run_module(module, run_name="__main__")
+            except SystemExit as e:
+                require(e.code == 0, f"{name}: exit code {e.code}")
+            else:
+                raise RuntimeError(f"{name}: did not exit through SystemExit(main())")
+            finally:
+                sys.argv, tempfile.tempdir = saved
+            torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"[16] {name}: {line}", flush=True)
+    wall = time.perf_counter() - t0
+    mem = {"max_memory_allocated": torch.cuda.max_memory_allocated()}
+    return buf.getvalue().splitlines(), mem, wall
+
+
+def same_top(got: list, ranked: list, k: int) -> bool:
+    """``got``'s first k ids are the oracle's (``ranked``: (id as printed,
+    score), k + 1 deep), up to order among scores within ``NEAR_TIE`` of
+    each other (the card sums in f32, the oracle in f64)."""
+    if len(got) < k or len(set(got[:k])) < k:
+        return False
+    for j, g in enumerate(got[:k]):
+        s = ranked[j][1]
+        if g not in {d for d, v in ranked if abs(v - s) <= NEAR_TIE * max(1.0, abs(s))}:
+            return False
+    return True
+
+
+def check_quickstart(lines: list) -> dict:
+    """Five answers, the first cold and the rest warm, each query's top 3 the
+    oracle's on the host."""
+    from repro_torch.examples import quickstart
+    from repro_torch.search.oracle import OracleSearcher
+    docs, queries = quickstart.corpus_and_queries()
+    oracle = OracleSearcher(docs)
+    answers = [ln for ln in lines if ln.startswith("q") and "] '" in ln]
+    require(len(answers) == len(queries) == 5, f"quickstart: {len(answers)} answer lines")
+    kinds = [ln.split("[", 1)[1].split()[0] for ln in answers]
+    require(kinds == ["cold"] + ["warm"] * 4, f"quickstart: kinds {kinds}")
+    for q, ln in zip(queries, answers):
+        got = [hit.split(":")[0] for hit in ln.split(" → ", 1)[1].split(", ")]
+        require(same_top(got, [(str(i), v) for i, v in oracle.search(q, k=4)], 3),
+                f"quickstart: {got} != the oracle's top 3 for {q!r}")
+    return {"cold": kinds.count("cold"), "warm": kinds.count("warm")}
+
+
+def mesh_k2_launches() -> int:
+    """K2's launches in partitioned_search's mesh half, as the body implies:
+    a local top-k over the partition's documents a chunk of
+    ``partitions_per_call`` partitions, then one merge of the gathered row."""
+    from repro_torch.examples import partitioned_search as ps
+    from repro_torch.search.distributed import (DistSearchConfig, partition_corpus,
+                                                partitions_per_call)
+    docs, queries = ps.corpus_and_queries()
+    parts = ps.MESH_SHAPE[0] * ps.MESH_SHAPE[1]
+    cfg = DistSearchConfig(n_parts=parts, n_docs_local=partition_corpus(docs, parts)[1],
+                           n_blocks_local=0, vocab=0, **ps.MESH_CFG)
+    chunks = -(-parts // partitions_per_call(cfg, len(queries), cfg.max_terms))
+    return chunks * topk_launches(cfg.n_docs_local, cfg.k) + topk_launches(parts * cfg.k, cfg.k)
+
+
+def check_partitioned(lines: list) -> dict:
+    """Every top 3 == the oracle (the example's own marks), the batch in 4
+    invocations, 5 backup legs in the hedged half, 5 mesh answers."""
+    text = "\n".join(lines)
+    require("!=" not in text, "partitioned_search: a top 3 != the oracle")
+    require("batch Q=5: 4 invocations" in text and "5/5 top3 == oracle" in text,
+            "partitioned_search: the batch line")
+    require("(5 backup legs)" in text, "partitioned_search: backup legs")
+    mesh = next(i for i, ln in enumerate(lines) if ln.startswith("== mesh-level"))
+    require("(4 partitions)" in lines[mesh], f"partitioned_search: {lines[mesh]}")
+    n_mesh = sum("top3 == oracle (" in ln for ln in lines[mesh + 1:])
+    require(n_mesh == 5, f"partitioned_search: {n_mesh} mesh answers == the oracle")
+    return {"mesh_answers_equal_oracle": n_mesh}
+
+
+def check_serve_msmarco(lines: list) -> dict:
+    """Every replayed response ok (the example raises otherwise), the first
+    query on v2 ok, the fungibility line; the scorecard's numbers."""
+    text = "\n".join(lines)
+    require("first query on v2: ok (version v2)" in text, "serve_msmarco: the v2 query")
+    require("$1.00 ≡ 100 QPS×1,000 s = $1.00" in text, "serve_msmarco: fungibility")
+    warm = re.search(r"warm queries: (\d+)\s+p50\s+([\d.]+) ms\s+p99\s+([\d.]+) ms", text)
+    cold = re.search(r"cold queries: (\d+)", text)
+    fleet = re.search(r"fleet peak size: (\d+) instances; hedged: (\d+)", text)
+    cost = re.search(r"for (\d+) queries → ([\d,]+) q/\$", text)
+    wall = re.search(r"real wall time: ([\d.]+)s", text)
+    require(all((warm, fleet, cost, wall)), "serve_msmarco: the scorecard")
+    n_cold = int(cold[1]) if cold else 0
+    argv = EXAMPLES["serve_msmarco"]
+    replayed = int(argv[argv.index("--queries") + 1])
+    require(int(warm[1]) + n_cold == replayed, f"serve_msmarco: warm + cold != {replayed}")
+    return {"warm": int(warm[1]), "warm_p50_ms": float(warm[2]), "warm_p99_ms": float(warm[3]),
+            "cold": n_cold, "fleet_peak": int(fleet[1]), "hedged": int(fleet[2]),
+            "invocations": int(cost[1]), "q_per_dollar": int(cost[2].replace(",", "")),
+            "replay_wall_s": float(wall[1])}
+
+
+def check_train_lm(lines: list) -> dict:
+    """One restart, the CPU run's steps lost, the loss falling; the step
+    times the example printed."""
+    text = "\n".join(lines)
+    done = re.search(r"done: (\d+) steps in ([\d.]+)s; restarts=(\d+) steps_lost=(\d+)", text)
+    loss = re.search(r"first10=([\d.]+) last10=([\d.]+)", text)
+    require(done and loss, "train_lm: the done and loss lines")
+    require(int(done[3]) == 1 and int(done[4]) == TRAIN_LM_STEPS_LOST,
+            f"train_lm: restarts={done[3]} steps_lost={done[4]}, expected 1 and "
+            f"{TRAIN_LM_STEPS_LOST}")
+    require(float(loss[2]) < float(loss[1]), f"train_lm: last10 {loss[2]} >= first10 {loss[1]}")
+    step_ms = [int(ms) for ms in re.findall(r"\((\d+) ms/step\)", text)]
+    return {"steps": int(done[1]), "run_s": float(done[2]), "restarts": int(done[3]),
+            "steps_lost": int(done[4]), "first10": float(loss[1]), "last10": float(loss[2]),
+            "logged_step_ms": step_ms}
+
+
+def examples_phase(kern, torch) -> tuple[dict, dict]:
+    """Phase 16: the four examples, ``python -m repro_torch.examples.<name>``
+    on the card at ``EXAMPLES``' argv, each in a fresh temporary directory,
+    the launch counters set to 0 before each and checked after it (K2 alone,
+    in partitioned_search's mesh half; no other kernel in any), then each
+    one's output checked."""
+    t_phase = time.perf_counter()
+    checks = {"quickstart": check_quickstart, "partitioned_search": check_partitioned,
+              "serve_msmarco": check_serve_msmarco, "train_lm": check_train_lm}
+    out, launches = {}, {}
+    for name in EXAMPLES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        lines, mem, wall = run_example(name, kern, torch)
+        route = f"examples:{name}"     # (the expectation imports the example: after its run)
+        launches[route] = counted(kern, route, {"K2": mesh_k2_launches()}
+                                  if name == "partitioned_search" else {})
+        out[name] = {"wall_s": wall, "launches": {k: c for k, c in launches[route].items() if c},
+                     **mem, **checks[name](lines)}
+        print(f"[16] {' '.join([name, *EXAMPLES[name]])}: {wall:.1f} s, launches "
+              f"{out[name]['launches'] or 'none'}, max_memory_allocated "
+              f"{mem['max_memory_allocated']} B; {json.dumps(out[name])}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[16] phase 16 took {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=50_000,
@@ -4583,6 +4785,9 @@ def main() -> int:
     ap.add_argument("--cells-only", action="store_true",
                     help="phases 1, 2 and 15 only (a shake-out of the dry run, the cells on the "
                          "card and the launcher's production mesh; prints no ok line)")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="phases 1, 2 and 16 only (the four examples on the card; prints no "
+                         "ok line)")
     args = ap.parse_args()
 
     import torch
@@ -4723,6 +4928,13 @@ def main() -> int:
         print("chip_smoke: --moe-only, a partial run", flush=True)
         return 0
 
+    if args.examples_only:
+        examples, _ = examples_phase(kern, torch)
+        print(json.dumps({"examples": examples}), flush=True)
+        print(smi, flush=True)
+        print("chip_smoke: --examples-only, a partial run", flush=True)
+        return 0
+
     # 3. data at real scale
     t0 = time.perf_counter()
     docs = synth_corpus(args.docs, vocab=1 << 19, mean_len=60, seed=0)
@@ -4825,6 +5037,12 @@ def main() -> int:
     print(json.dumps({"cells": cells_out}), flush=True)
     print(f"[15] phases 1-15 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 16. the four examples, as a user runs them, on the card
+    examples, example_launches = examples_phase(kern, torch)
+    launches.update(example_launches)
+    print(json.dumps({"examples": examples}), flush=True)
+    print(f"[16] phases 1-16 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
     Q = len(queries)
     meta = {
         "K3": ("bm25_block_impacts", "src/repro_torch/kernels/csrc/bm25_block.cu",
@@ -4862,7 +5080,8 @@ def main() -> int:
     line["kernels"][1]["mesh_walls_ms"] = mesh_walls
     line["kernels"][1]["launches_on"] = [COUNTED_ON["K2"]] + [
         route for route, c in mesh_launches.items() if c["K2"]] + [
-        route for r in moe.values() for route, c in r["launches"].items() if c["K2"]]
+        route for r in moe.values() for route, c in r["launches"].items() if c["K2"]] + [
+        route for route, c in example_launches.items() if c["K2"]]
     line["kernels"][1]["structured_device_us"] = {
         key: v for key, (v, _) in split.items()}
     line["kernels"].append({

@@ -61,6 +61,10 @@ def test_every_module_imports_without_jax_or_repro():
         assert set(train) <= set(names), sorted(set(train) - set(names))
         dry = ["repro_torch.launch.dryrun", "repro_torch.kernels.ops"]
         assert set(dry) <= set(names), sorted(set(dry) - set(names))
+        examples = ["repro_torch.examples", "repro_torch.examples.quickstart",
+                    "repro_torch.examples.partitioned_search",
+                    "repro_torch.examples.serve_msmarco", "repro_torch.examples.train_lm"]
+        assert set(examples) <= set(names), sorted(set(examples) - set(names))
         spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -72,7 +76,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 63          # every module was walked
+    assert int(out.stdout.strip()) >= 68          # every module was walked
 
 
 def test_sources_name_neither_jax_nor_repro():
@@ -240,3 +244,23 @@ def test_training_entry_points_need_a_card_unless_asked_for_cpu():
                  lambda: train_state_from_numpy({"params": {}, "opt": {}}, defs)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("name", ["quickstart", "partitioned_search", "serve_msmarco",
+                                  "train_lm"])
+def test_examples_need_a_card_unless_asked_for_cpu(name, tmp_path, monkeypatch):
+    """``python -m repro_torch.examples.<name>`` without ``--device`` means
+    the card, and raises without one before any work: nothing printed,
+    nothing written to the temporary directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main([])
+    assert buf.getvalue() == "" and not any(tmp_path.iterdir())
