@@ -282,13 +282,16 @@ Phases (each raises on failure; the script then exits non-zero):
      counters are set to 0 before each example and checked after it: K2 in
      partitioned_search's mesh half, a local top-k a chunk of
      ``partitions_per_call`` partitions and one merge; no other kernel in any
-     example. Checks: quickstart's first answer cold and the other four warm,
+     example. K2 is then held bitwise against its twin at those two shapes,
+     on the mesh half's state rebuilt on the card: the twin's top-k of the
+     local rows must be the body's survivors, and its merge of the gathered
+     row the search's whole top 10, ids and score bits. Checks: quickstart's first answer cold and the other four warm,
      each top 3 the host ``OracleSearcher``'s (up to order within 1e-6);
      partitioned_search with no ``!=``, its batch in 4 invocations, 5 backup
      legs, 5 mesh answers == the oracle; serve_msmarco's replay all ok, the
-     first query on v2 ok, the fungibility line; train_lm one restart, 17
-     steps lost (its CPU run's count) and the last 10 steps' mean loss below
-     the first 10's. Prints each example's output, wall, launches and peak
+     first query on v2 ok, the fungibility line; train_lm one restart, the
+     steps lost that the launcher's checkpoint rule implies (17) and the
+     last 10 steps' mean loss below the first 10's. Prints each example's output, wall, launches and peak
      memory, serve_msmarco's scorecard and train_lm's logged steps, and an
      ``{"examples": ...}`` JSON line.
 
@@ -4571,8 +4574,6 @@ EXAMPLES = {                   # python -m repro_torch.examples.<name> <argv>, o
     "serve_msmarco": ["--docs", "50000", "--queries", "400", "--qps", "25.0"],
     "train_lm": [],
 }
-TRAIN_LM_STEPS_LOST = 17       # `python -m repro_torch.examples.train_lm --device cpu` prints
-                               # it: the failure at step 18 restores the checkpoint of step 0
 NEAR_TIE = 1e-6                # oracle scores this close (relative) may rank either way
 
 
@@ -4605,10 +4606,10 @@ def run_example(name: str, kern, torch) -> tuple[list, dict, float]:
             finally:
                 sys.argv, tempfile.tempdir = saved
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0         # before the directory's removal
     finally:
         for line in buf.getvalue().splitlines():
             print(f"[16] {name}: {line}", flush=True)
-    wall = time.perf_counter() - t0
     mem = {"max_memory_allocated": torch.cuda.max_memory_allocated()}
     return buf.getvalue().splitlines(), mem, wall
 
@@ -4659,6 +4660,58 @@ def mesh_k2_launches() -> int:
     return chunks * topk_launches(cfg.n_docs_local, cfg.k) + topk_launches(parts * cfg.k, cfg.k)
 
 
+def mesh_k2_cases(kern, ref, torch, device="cuda") -> dict:
+    """K2 against its twin, bitwise, at the shapes that partitioned_search's
+    mesh half gives it, on the example's state rebuilt on the card: the
+    stacked body's local rows (one scoring call's partitions) and the merge
+    of the gathered row. The twin's top-k of those local rows must be the
+    body's survivors, and its merge of that gathered row the search's whole
+    top-k, ids and score bits."""
+    import functools
+
+    from repro_torch.examples import partitioned_search as ps
+    from repro_torch.parallel import compat
+    from repro_torch.parallel.compat import P
+    from repro_torch.search import bm25
+    from repro_torch.search import distributed as dist
+    docs, queries = ps.corpus_and_queries()
+    parts = ps.MESH_SHAPE[0] * ps.MESH_SHAPE[1]
+    state, cfg, vocab = dist.build_partitioned_state(docs, parts, ps.MESH_CFG, device=device)
+    mesh = compat.make_mesh(ps.MESH_SHAPE, MESH_AXES, device=device)
+    tids, qtf = bm25.encode_queries(vocab, queries, max_terms=cfg.max_terms,
+                                    idf=state["idf"].cpu().numpy())
+    tids, qtf = (torch.as_tensor(x, device=device) for x in (tids, qtf))
+    Q, k = len(queries), cfg.k
+    body = functools.partial(dist._local_search, cfg=cfg, axes=MESH_AXES)
+    specs = (dist.dist_state_specs(MESH_AXES), P(None, None), P(None, None))
+    gathered = P(None, dist.gather_axes(MESH_AXES, cfg.fused_gather))
+    with compat.use_mesh(mesh):
+        s, i = dist.make_dist_search_fn(cfg, MESH_AXES, mesh=mesh)(state, tids, qtf)
+        lv, _ = compat.shard_map(body, mesh, in_specs=specs,
+                                 out_specs=(P(MESH_AXES), P(MESH_AXES)))(state, tids, qtf)
+        gv, gi = compat.shard_map(body, mesh, in_specs=specs,
+                                  out_specs=(gathered, gathered))(state, tids, qtf)
+    per = min(parts, dist.partitions_per_call(cfg, Q, cfg.max_terms))
+    local = dist.stacked_search_state(
+        {key: state[key][:per] for key in ("term_offsets", "block_docs", "block_tf",
+                                           "block_max", "doc_len")},
+        state["idf"], state["params"], cfg)
+    scores = bm25.score_dense(local, tids.repeat(per, 1), qtf.repeat(per, 1),
+                              max_blocks=cfg.max_blocks).contiguous()
+    require(bits_equal(ref.topk_ref(scores, k)[0], lv.view(parts, Q, k)[:per].reshape(-1, k)),
+            "partitioned_search mesh: the twin's top-k of the local rows != the body's")
+    tv, tp = ref.topk_ref(gv.contiguous(), k)
+    require(bits_equal(tv, s) and bits_equal(torch.gather(gi, 1, tp.long()), i),
+            "partitioned_search mesh: the twin's merge != the search's top-k")
+    cases = {"local top-k": k2_case(kern["K2"], ref, torch, scores, k,
+                                    "partitioned_search mesh local top-k"),
+             "merge": k2_case(kern["K2"], ref, torch, gv.contiguous(), k,
+                              "partitioned_search mesh merge")}
+    for name, r in cases.items():
+        print_case("16", f"K2 on partitioned_search's mesh {name}", r)
+    return {name: case_entry(r) for name, r in cases.items()}
+
+
 def check_partitioned(lines: list) -> dict:
     """Every top 3 == the oracle (the example's own marks), the batch in 4
     invocations, 5 backup legs in the hedged half, 5 mesh answers."""
@@ -4696,16 +4749,32 @@ def check_serve_msmarco(lines: list) -> dict:
             "replay_wall_s": float(wall[1])}
 
 
+def train_lm_steps_lost(argv: list) -> int:
+    """The steps that train_lm at ``argv`` loses to its one injected failure,
+    by the launcher's rules: a checkpoint after every step that
+    ``--ckpt-every`` divides, a failure just before its step runs, and the
+    restart from the last checkpoint before it (none: from scratch)."""
+    from repro_torch.examples import train_lm
+    args = train_lm.parser().parse_args(argv)
+    handed = train_lm.launcher_argv(args)
+    every = int(handed[handed.index("--ckpt-every") + 1])
+    require(len(args.fail_at) == 1 and args.fail_at[0] < args.steps,
+            f"train_lm: one failure within the run, not {args.fail_at}")
+    fail = args.fail_at[0]
+    restored = max((s for s in range(fail) if s % every == 0), default=-1)
+    return fail - restored - 1
+
+
 def check_train_lm(lines: list) -> dict:
-    """One restart, the CPU run's steps lost, the loss falling; the step
-    times the example printed."""
+    """One restart, the steps lost that the launcher's checkpoint rule
+    implies, the loss falling; the step times the example printed."""
     text = "\n".join(lines)
+    lost = train_lm_steps_lost(EXAMPLES["train_lm"])
     done = re.search(r"done: (\d+) steps in ([\d.]+)s; restarts=(\d+) steps_lost=(\d+)", text)
     loss = re.search(r"first10=([\d.]+) last10=([\d.]+)", text)
     require(done and loss, "train_lm: the done and loss lines")
-    require(int(done[3]) == 1 and int(done[4]) == TRAIN_LM_STEPS_LOST,
-            f"train_lm: restarts={done[3]} steps_lost={done[4]}, expected 1 and "
-            f"{TRAIN_LM_STEPS_LOST}")
+    require(int(done[3]) == 1 and int(done[4]) == lost,
+            f"train_lm: restarts={done[3]} steps_lost={done[4]}, expected 1 and {lost}")
     require(float(loss[2]) < float(loss[1]), f"train_lm: last10 {loss[2]} >= first10 {loss[1]}")
     step_ms = [int(ms) for ms in re.findall(r"\((\d+) ms/step\)", text)]
     return {"steps": int(done[1]), "run_s": float(done[2]), "restarts": int(done[3]),
@@ -4713,7 +4782,7 @@ def check_train_lm(lines: list) -> dict:
             "logged_step_ms": step_ms}
 
 
-def examples_phase(kern, torch) -> tuple[dict, dict]:
+def examples_phase(kern, ref, torch) -> tuple[dict, dict]:
     """Phase 16: the four examples, ``python -m repro_torch.examples.<name>``
     on the card at ``EXAMPLES``' argv, each in a fresh temporary directory,
     the launch counters set to 0 before each and checked after it (K2 alone,
@@ -4732,6 +4801,8 @@ def examples_phase(kern, torch) -> tuple[dict, dict]:
                                   if name == "partitioned_search" else {})
         out[name] = {"wall_s": wall, "launches": {k: c for k, c in launches[route].items() if c},
                      **mem, **checks[name](lines)}
+        if name == "partitioned_search":
+            out[name]["k2"] = mesh_k2_cases(kern, ref, torch)
         print(f"[16] {' '.join([name, *EXAMPLES[name]])}: {wall:.1f} s, launches "
               f"{out[name]['launches'] or 'none'}, max_memory_allocated "
               f"{mem['max_memory_allocated']} B; {json.dumps(out[name])}", flush=True)
@@ -4929,7 +5000,7 @@ def main() -> int:
         return 0
 
     if args.examples_only:
-        examples, _ = examples_phase(kern, torch)
+        examples, _ = examples_phase(kern, ref, torch)
         print(json.dumps({"examples": examples}), flush=True)
         print(smi, flush=True)
         print("chip_smoke: --examples-only, a partial run", flush=True)
@@ -5038,7 +5109,7 @@ def main() -> int:
     print(f"[15] phases 1-15 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 16. the four examples, as a user runs them, on the card
-    examples, example_launches = examples_phase(kern, torch)
+    examples, example_launches = examples_phase(kern, ref, torch)
     launches.update(example_launches)
     print(json.dumps({"examples": examples}), flush=True)
     print(f"[16] phases 1-16 took {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -5077,6 +5148,9 @@ def main() -> int:
         {f"mesh {name}": case_entry(r) for name, r in mesh_cases.items()})
     line["kernels"][1]["shapes"].update(
         {f"{name} router": case_entry(r["k2"]) for name, r in moe.items()})
+    line["kernels"][1]["shapes"].update(
+        {f"examples:partitioned_search mesh {name}": r
+         for name, r in examples["partitioned_search"]["k2"].items()})
     line["kernels"][1]["mesh_walls_ms"] = mesh_walls
     line["kernels"][1]["launches_on"] = [COUNTED_ON["K2"]] + [
         route for route, c in mesh_launches.items() if c["K2"]] + [

@@ -31,7 +31,8 @@ import tempfile
 from repro_torch.launch import train as train_mod
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The reference's flags, plus ``--device``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=4)
@@ -40,20 +41,26 @@ def main(argv=None) -> int:
     ap.add_argument("--fail-at", type=int, nargs="*", default=[18])
     ap.add_argument("--device", default=None,
                     help="the card when omitted (raises without one); 'cpu' on request")
-    args = ap.parse_args(argv)
+    return ap
 
-    launcher_argv = [
+
+def launcher_argv(args: argparse.Namespace) -> list[str]:
+    """The argv that the example hands ``repro_torch.launch.train.main``."""
+    argv = [
         "--arch", args.arch, "--preset", "100m",
         "--steps", str(args.steps), "--batch", str(args.batch),
         "--seq", str(args.seq), "--ckpt-every", "50",
         "--metrics-out", os.path.join(tempfile.gettempdir(), "train_lm_metrics.json"),
     ]
     if args.fail_at:
-        launcher_argv += ["--fail-at"] + [str(x) for x in args.fail_at]
+        argv += ["--fail-at"] + [str(x) for x in args.fail_at]
     if args.device is not None:
-        launcher_argv += ["--device", args.device]
-    return train_mod.main(launcher_argv)
+        argv += ["--device", args.device]
+    return argv
 
+
+def main(argv=None) -> int:
+    return train_mod.main(launcher_argv(parser().parse_args(argv)))
 
 if __name__ == "__main__":
     raise SystemExit(main())

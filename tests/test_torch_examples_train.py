@@ -13,6 +13,7 @@ A run's checkpoints (~1.2 GB each of a 100M model and its moments) are
 deleted with the test's directory."""
 
 import contextlib
+import importlib.util
 import io
 import json
 import os
@@ -126,6 +127,11 @@ def test_train_lm_hands_its_launcher_the_reference_argv(scratch, monkeypatch):
     assert got == want
     assert handed[0][handed[0].index("--metrics-out") + 1] == str(scratch / "port" / METRICS)
     assert restarts_line(out) == restarts_line(ref_out) == (1, 1)
+    # chip_smoke.py's phase 16 derives the steps lost from the same rule
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.train_lm_steps_lost(DRILL) == 1
     metrics = json.loads((scratch / "port" / METRICS).read_text())
     assert metrics["restarts"] == 1 and metrics["steps_lost"] == 1
     assert (scratch / "port" / "repro_torch_ckpt").is_dir()     # the launcher's default
